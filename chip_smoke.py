@@ -8,18 +8,31 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. environment: the card's name and power limit, torch, CUDA and nvcc;
 2. build: ``nvcc`` compiles ``src/repro_torch/csrc/*.cu`` for sm_90a;
-3. kernels against their plain versions on the card, on edge cases;
+3. kernels against their plain versions on the card, on edge cases (the
+   filter kernels bit for bit);
 4. the main path: q1-q12 under the four default strategies on
    ``generate(scale, p=8, seed=0)`` on the card: one warm-up pass, then the
    reported pass, with every launch count set to 0 just before and read
    just after; every strategy must give the same rows, and every kernel
-   must have launched. A third pass runs under ``torch.profiler`` for the
-   device's busy share and its kernels by time. The largest input each
-   kernel saw is kept, and each kernel, its plain version and one PyTorch
-   call for the same function are timed on it with CUDA events;
-5. cross-checks: the q1-q12 decisions at ``generate(0.1, 4, 42)`` equal the
-   golden fixture, and at scale 3 the gather path (``use_kernel=False``)
-   gives the rows of the kernel path.
+   of the path must have launched. A third pass runs under
+   ``torch.profiler`` for the device's busy share and its kernels by time.
+   The largest input each kernel saw is kept, and each kernel, its plain
+   version and one PyTorch call for the same function are timed on it
+   with CUDA events (the kernel also by its device time alone, from the
+   profiler);
+5. runtime filters on the same catalog: q19-q23 under
+   ``FilteredStrategy(s)`` for each default strategy, after a warm-up pass
+   and beside the unfiltered runs: the same rows, the planned filter kinds,
+   fewer probe-side shuffle bytes over the suite, and the filter kernels
+   launched (counts set to 0 just before the filtered pass and read just
+   after); then the suite again against one shared ``FilterCache``, warm;
+   one pass under ``torch.profiler``; then the filter kernels timed at
+   their largest inputs, as in phase 4;
+6. cross-checks: the q1-q12 and (unfiltered) q19-q23 decisions at
+   ``generate(0.1, 4, 42)`` equal the golden fixture, the filtered runs'
+   filters and methods there equal those of the same runs on the CPU, and
+   at scale 3 the gather path (``use_kernel=False``) gives the rows of the
+   kernel path.
 
 It prints one JSON line of kernel measurements, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. It needs no
@@ -83,6 +96,32 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean milliseconds of device activity (kernels, memsets, copies) that
+    one call of ``fn`` puts on the card, from ``torch.profiler``: the
+    kernel's own time, without the host's launch cost between calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA)
+    return us / reps / 1e3
+
+
+def time_kernel(fn, reps: int) -> dict:
+    """``ms``: CUDA events around ``reps`` back-to-back wrapper calls, host
+    launch cost included where it outlasts the device work; ``device_ms``:
+    the device time alone."""
+    return dict(ms=cuda_ms(fn, reps), device_ms=device_ms(fn, reps))
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -162,6 +201,56 @@ def check_kernels_edge_cases(dev) -> None:
           "version (sorted keys equal, values address them)")
 
 
+def check_filter_kernels_edge_cases(dev) -> None:
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bloom import bloom_build, bloom_probe
+    from repro_torch.kernels.zone_map import key_range
+
+    rng = np.random.default_rng(1)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    extremes = np.array([0, -1, -(2 ** 31), 2 ** 31 - 1], np.int32)
+
+    def cases():
+        for n in (0, 1, 31, 1000, 100_003):
+            keys = rng.integers(-(2 ** 31), 2 ** 31 - 1, n,
+                                dtype=np.int64).astype(np.int32)
+            keys[:min(n, 4)] = extremes[:min(n, 4)]
+            for mask in ("all", "none", "random"):
+                valid = (np.full(n, mask == "all") if mask != "random"
+                         else rng.random(n) < 0.5)
+                yield f"n={n} {mask}", t(keys), t(valid)
+        keys = rng.integers(-5000, 5000, (8, 12_500)).astype(np.int32)
+        keys[0, :4] = extremes
+        yield "(8, 12500) random", t(keys), t(rng.random((8, 12_500)) < 0.5)
+
+    n_bloom = n_range = 0
+    for label, keys, valid in cases():
+        flat_k, flat_v = keys.reshape(-1), valid.reshape(-1)
+        for m_bits in (32, 256, 65536, 1 << 20):
+            for k in (1, 7, 8):
+                words = bloom_build(keys, valid, m_bits=m_bits, k=k)
+                want = ref.bloom_build_ref(flat_k, flat_v, m_bits, k)
+                require(torch.equal(words, want),
+                        f"bloom_build {label} m_bits={m_bits} k={k}")
+                keep = bloom_probe(keys, words, k=k)
+                require(keep.shape == keys.shape and torch.equal(
+                    keep.reshape(-1), ref.bloom_probe_ref(flat_k, words, k)),
+                    f"bloom_probe {label} m_bits={m_bits} k={k}")
+                require(bool(keep[valid].all()),
+                        f"bloom_probe false negative {label}")
+                n_bloom += 1
+        got = key_range(keys, valid)
+        require(torch.equal(got, ref.key_range_ref(flat_k, flat_v)),
+                f"key_range {label}: {got.tolist()}")
+        n_range += 1
+    print(f"  bloom_build, bloom_probe: {n_bloom} cases each bit-identical "
+          "to the plain versions, no false negatives")
+    print(f"  key_range: {n_range} cases equal to the plain version")
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -185,19 +274,24 @@ class LargestInputs:
     def installed(self):
         from repro_torch.joins import exchange
         from repro_torch.kernels import ops
-        saved = (exchange.partition_hist, ops.tiled_probe,
-                 ops.bitonic_sort_tile)
-        exchange.partition_hist = self.wrap(
-            "partition_hist", saved[0], lambda d, **kw: d.numel())
-        ops.tiled_probe = self.wrap(
-            "tiled_probe", saved[1], lambda a, b: a.numel() * b.shape[-1])
-        ops.bitonic_sort_tile = self.wrap(
-            "bitonic_sort_tile", saved[2], lambda k, v: k.numel())
+        from repro_torch.sql import runtime_filters as rf
+        sizes = {"partition_hist": lambda d, **kw: d.numel(),
+                 "tiled_probe": lambda a, b: a.numel() * b.shape[-1],
+                 "bitonic_sort_tile": lambda k, v: k.numel(),
+                 "bloom_build": lambda keys, *a, **kw: keys.numel(),
+                 "bloom_probe": lambda keys, *a, **kw: keys.numel(),
+                 "key_range": lambda keys, *a, **kw: keys.numel()}
+        callers = {"partition_hist": exchange, "tiled_probe": ops,
+                   "bitonic_sort_tile": ops, "bloom_build": rf,
+                   "bloom_probe": rf, "key_range": rf}
+        saved = {name: getattr(mod, name) for name, mod in callers.items()}
+        for name, mod in callers.items():
+            setattr(mod, name, self.wrap(name, saved[name], sizes[name]))
         try:
             yield self
         finally:
-            (exchange.partition_hist, ops.tiled_probe,
-             ops.bitonic_sort_tile) = saved
+            for name, mod in callers.items():
+                setattr(mod, name, saved[name])
 
 
 def float_gap(rows_a, rows_b) -> float:
@@ -211,14 +305,16 @@ def float_gap(rows_a, rows_b) -> float:
     return worst
 
 
-def run_main_path(dev, scale: float, p: int):
-    import numpy as np
+#: The kernels the main path (q1-q12) runs, and those the runtime-filter
+#: path adds.
+MAIN_KERNELS = ("partition_hist", "tiled_probe", "bitonic_sort_tile")
+FILTER_KERNELS = ("bloom_build", "bloom_probe", "key_range")
+
+
+def make_catalog(dev, scale: float, p: int):
     import torch
 
-    from repro_torch.joins.ref import rows_as_set, rows_close
-    from repro_torch.kernels import ops
-    from repro_torch.sql import (Executor, all_queries, default_strategies,
-                                 generate)
+    from repro_torch.sql import generate
 
     t0 = time.perf_counter()
     catalog = generate(scale=scale, p=p, seed=0, device=dev)
@@ -232,6 +328,16 @@ def run_main_path(dev, scale: float, p: int):
                      for t in catalog.tables.values()
                      for c in t.columns.values())
     print(f"  base columns on the device: {base_bytes / 1e6:.1f} MB")
+    return catalog
+
+
+def run_main_path(catalog):
+    import numpy as np
+    import torch
+
+    from repro_torch.joins.ref import rows_as_set, rows_close
+    from repro_torch.kernels import ops
+    from repro_torch.sql import Executor, all_queries, default_strategies
 
     queries, strategies = all_queries(), default_strategies()
 
@@ -271,8 +377,9 @@ def run_main_path(dev, scale: float, p: int):
           f"{len(queries) * len(strategies)} runs; launches {launches}")
     print(f"  torch.cuda.max_memory_allocated: "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    for name, n in launches.items():
-        require(n > 0, f"kernel {name} never launched on the main path")
+    for name in MAIN_KERNELS:
+        require(launches[name] > 0,
+                f"kernel {name} never launched on the main path")
 
     for qname in queries:
         first = rows_as_set(results[(qname, strategies[0].name)])
@@ -364,7 +471,7 @@ def measure_kernels(calls: dict, launches: dict) -> list:
         source="src/repro_torch/csrc/partition_hist.cu",
         replaces="src/repro/kernels/partition_hist.py:46",
         launches=launches["partition_hist"], max_abs_err=err,
-        ms=cuda_ms(lambda: partition_hist(dest, nd=nd), 50),
+        **time_kernel(lambda: partition_hist(dest, nd=nd), 50),
         plain_ms=cuda_ms(lambda: ref.partition_hist_ref(dest, nd), 20),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=cuda_ms(lambda: torch.bincount(shifted,
@@ -384,7 +491,7 @@ def measure_kernels(calls: dict, launches: dict) -> list:
         source="src/repro_torch/csrc/tiled_probe.cu",
         replaces="src/repro/kernels/tiled_probe.py:72",
         launches=launches["tiled_probe"], max_abs_err=err,
-        ms=cuda_ms(lambda: tiled_probe(a, b), 20),
+        **time_kernel(lambda: tiled_probe(a, b), 20),
         plain_ms=cuda_ms(lambda: ref.tiled_probe_ref(a, b), 3),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         shape=f"B={bsz} na={na} nb={nb}"))
@@ -404,35 +511,257 @@ def measure_kernels(calls: dict, launches: dict) -> list:
         source="src/repro_torch/csrc/bitonic_sort.cu",
         replaces="src/repro/kernels/bitonic_sort.py:66",
         launches=launches["bitonic_sort_tile"], max_abs_err=err,
-        ms=cuda_ms(lambda: bitonic_sort_tile(k, v), 50),
+        **time_kernel(lambda: bitonic_sort_tile(k, v), 50),
         plain_ms=cuda_ms(lambda: ref.bitonic_sort_ref(k, v), 50),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=cuda_ms(lambda: torch.sort(k, dim=-1), 50),
         shape=f"B={bsz} n={n}"))
 
+    report_kernels(rows)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: runtime filters
+# ---------------------------------------------------------------------------
+
+#: The filter kind each of q19-q23 plans on ``generate(0.1, 4, 42)``, as
+#: the reference plans it there.
+FILTER_KIND = {"q19_filtered_customer": "bloom",
+               "q20_filter_below_earlier_exchange": "bloom",
+               "q21_catalog_filtered_dates": "bloom",
+               "q22_zone_map_window": "zone_map",
+               "q23_semi_join_stores": "semi_join"}
+#: ... and on the main path's catalog (seed 0, any scale: the dimensions do
+#: not scale). There 9 of the 60 stores pass q23's ``s_state = 0``, so the
+#: exact key list (288 bits) costs more than the 256-bit minimum bloom
+#: filter, and q23 plans bloom, as the reference does on that catalog.
+FILTER_KIND_SEED0 = {**FILTER_KIND, "q23_semi_join_stores": "bloom"}
+
+
+def describe_filters(res) -> str:
+    return "; ".join(f"{f.plan.kind} m_bits={f.plan.m_bits} k={f.plan.k} "
+                     f"{f.plan.probe_key} {f.rows_before}->{f.rows_after}"
+                     for f in res.filters)
+
+
+def run_filter_path(catalog):
+    import numpy as np
+
+    from repro_torch.joins.ref import rows_as_set, rows_close
+    from repro_torch.kernels import ops
+    from repro_torch.sql import (Executor, FilterCache, FilteredStrategy,
+                                 default_strategies, filtered_queries)
+
+    queries, strategies = filtered_queries(), default_strategies()
+    require(sorted(queries) == sorted(FILTER_KIND_SEED0), "q19-q23 suite")
+
+    def run_suite(make):
+        for qname, plan in queries.items():
+            for s in strategies:
+                yield qname, s, Executor(catalog, make(s)).execute(plan)
+
+    t_warm = time.perf_counter()
+    for make in (FilteredStrategy, lambda s: s):  # first calls, not reported
+        for _ in run_suite(make):
+            pass
+    print(f"  warm-up pass (filtered and unfiltered): "
+          f"{time.perf_counter() - t_warm:.1f} s")
+
+    base = {}
+    for qname, s, res in run_suite(lambda s: s):
+        base[(qname, s.name)] = (rows_as_set(res.table.to_numpy()),
+                                 res.probe_shuffle_bytes, res.wall_time_s,
+                                 res.network_bytes)
+
+    spy = LargestInputs()
+    filtered = {}
+    ops.reset_launch_counts()
+    t_phase = time.perf_counter()
+    with spy.installed():
+        before = ops.launch_counts()
+        for qname, s, res in run_suite(FilteredStrategy):
+            after = ops.launch_counts()
+            delta = ",".join(str(after[k] - before[k]) for k in after)
+            before = after
+            cols = res.table.to_numpy()
+            print(f"  {qname:34s} {s.name:13s} "
+                  f"{','.join(m.value for m in res.methods()):29s} "
+                  f"net={res.network_bytes:.0f} "
+                  f"probe_shuffle={res.probe_shuffle_bytes:.0f} "
+                  f"rows={res.rows} wall={res.wall_time_s:.4f}s "
+                  f"launches={delta} filters: {describe_filters(res)}")
+            require(len(res.filters) >= 1, f"{qname} {s.name}: no filter")
+            kinds = {f.plan.kind for f in res.filters}
+            require(kinds == {FILTER_KIND_SEED0[qname]},
+                    f"{qname} {s.name}: planned {sorted(kinds)}")
+            require(rows_close(rows_as_set(cols), base[(qname, s.name)][0]),
+                    f"{qname} {s.name}: filtered rows differ from the "
+                    "unfiltered run")
+            for name, c in cols.items():
+                if c.dtype.kind == "f":
+                    require(bool(np.isfinite(c).all()),
+                            f"{qname} {s.name}: non-finite {name}")
+            filtered[(qname, s.name)] = (res.probe_shuffle_bytes,
+                                         res.wall_time_s, res.network_bytes)
+    launches = ops.launch_counts()
+    print(f"  filter path: {time.perf_counter() - t_phase:.1f} s for "
+          f"{len(filtered)} runs; launches {launches}")
+    for name in ("partition_hist", "tiled_probe") + FILTER_KERNELS:
+        require(launches[name] > 0,
+                f"kernel {name} never launched on the filter path")
+
+    print("  per query, unfiltered -> filtered: probe-shuffle bytes, "
+          "wall ms (suite sums per strategy below)")
+    for qname in queries:
+        cells = []
+        for s in strategies:
+            b, f = base[(qname, s.name)], filtered[(qname, s.name)]
+            cells.append(f"{s.name} {b[1]:.0f}->{f[0]:.0f} "
+                         f"{b[2] * 1e3:.2f}->{f[1] * 1e3:.2f}")
+        print(f"    {qname:34s} " + " | ".join(cells))
+    suite = {"unfiltered": sum(v[1] for v in base.values()),
+             "filtered": sum(v[0] for v in filtered.values())}
+    for s in strategies:
+        print(f"    suite {s.name:13s} probe-shuffle "
+              f"{sum(base[(q, s.name)][1] for q in queries):.0f} -> "
+              f"{sum(filtered[(q, s.name)][0] for q in queries):.0f}, "
+              f"network {sum(base[(q, s.name)][3] for q in queries):.0f} -> "
+              f"{sum(filtered[(q, s.name)][2] for q in queries):.0f}, wall "
+              f"{sum(base[(q, s.name)][2] for q in queries) * 1e3:.2f} -> "
+              f"{sum(filtered[(q, s.name)][1] for q in queries) * 1e3:.2f} "
+              "ms")
+    print(f"  suite probe-shuffle bytes: unfiltered {suite['unfiltered']:.0f}"
+          f", filtered {suite['filtered']:.0f} "
+          f"({suite['unfiltered'] / max(suite['filtered'], 1):.2f}x fewer)")
+    require(suite["filtered"] < suite["unfiltered"],
+            "filters did not cut the suite's probe-shuffle bytes")
+
+    cache = FilterCache()
+    cached = lambda s: FilteredStrategy(s, cache=cache)  # noqa: E731
+    for _ in run_suite(cached):  # fills the cache
+        pass
+    hits, n = cache.hits, 0
+    for qname, s, res in run_suite(cached):
+        require(res.cached_filters >= 1 and res.filter_reduce_bytes == 0,
+                f"{qname} {s.name}: warm run built a filter")
+        require(rows_close(rows_as_set(res.table.to_numpy()),
+                           base[(qname, s.name)][0]),
+                f"{qname} {s.name}: warm-cache rows differ")
+        n += 1
+    print(f"  warm FilterCache: {n} of {n} runs took every filter from the "
+          f"cache ({cache.hits - hits} hits, {len(cache)} entries), reduce "
+          "bytes 0, rows unchanged")
+
+    profile_pass(lambda: run_suite(FilteredStrategy))
+    return launches, spy.calls
+
+
+def measure_filter_kernels(calls: dict, launches: dict) -> list:
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bloom import bloom_build, bloom_probe
+    from repro_torch.kernels.zone_map import key_range
+
+    rows = []
+
+    # Operation counts: the two 32-bit hashes of a key take 13 integer
+    # operations (two mix chains and the odd-forcing OR), each bit position
+    # and its word update or test 7 more.
+    _, (keys, valid), kw = calls["bloom_build"]
+    m_bits, k = kw["m_bits"], kw["k"]
+    flat_k, flat_v = keys.reshape(-1), valid.reshape(-1)
+    n, n_valid = flat_k.numel(), int(flat_v.sum())
+    got = bloom_build(keys, valid, m_bits=m_bits, k=k)
+    want = ref.bloom_build_ref(flat_k, flat_v, m_bits, k)
+    b_ms, b_by = bound(5 * n + m_bits // 8, n + n_valid * (13 + 7 * k))
+    rows.append(dict(
+        name="bloom_build", route="cuda",
+        source="src/repro_torch/csrc/bloom.cu",
+        replaces="src/repro/kernels/bloom.py:140",
+        launches=launches["bloom_build"],
+        max_abs_err=float((got.long() - want.long()).abs().max()),
+        **time_kernel(lambda: bloom_build(keys, valid, m_bits=m_bits,
+                                          k=k), 200),
+        plain_ms=cuda_ms(lambda: ref.bloom_build_ref(flat_k, flat_v, m_bits,
+                                                     k), 20),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=f"n={n} valid={n_valid} m_bits={m_bits} k={k}"))
+
+    _, (keys, words), kw = calls["bloom_probe"]
+    k = kw["k"]
+    m_bits = words.numel() * 32
+    flat_k = keys.reshape(-1)
+    n = flat_k.numel()
+    got = bloom_probe(keys, words, k=k)
+    want = ref.bloom_probe_ref(flat_k, words, k)
+    # Bits this data tests: each key stops at its first clear bit.
+    alive = torch.ones_like(flat_k, dtype=torch.bool)
+    tested = 0
+    w64 = words.long() & 0xFFFFFFFF
+    for i in range(k):
+        tested += int(alive.sum())
+        pos = ref.bloom_positions(flat_k, i, m_bits)
+        alive &= ((w64[pos >> 5] >> (pos & 31)) & 1).bool()
+    b_ms, b_by = bound(5 * n + m_bits // 8, 13 * n + 7 * tested)
+    rows.append(dict(
+        name="bloom_probe", route="cuda",
+        source="src/repro_torch/csrc/bloom.cu",
+        replaces="src/repro/kernels/bloom.py:167",
+        launches=launches["bloom_probe"],
+        max_abs_err=float((got.reshape(-1).int() - want.int()).abs().max()),
+        **time_kernel(lambda: bloom_probe(keys, words, k=k), 200),
+        plain_ms=cuda_ms(lambda: ref.bloom_probe_ref(flat_k, words, k), 20),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=f"{tuple(keys.shape)} m_bits={m_bits} k={k} kept="
+              f"{float(want.float().mean()):.3f}"))
+
+    _, (keys, valid), _ = calls["key_range"]
+    flat_k, flat_v = keys.reshape(-1), valid.reshape(-1)
+    n = flat_k.numel()
+    got = key_range(keys, valid)
+    want = ref.key_range_ref(flat_k, flat_v)
+    b_ms, b_by = bound(5 * n + 8, 2 * n)
+    rows.append(dict(
+        name="key_range", route="cuda",
+        source="src/repro_torch/csrc/zone_map.cu",
+        replaces="src/repro/kernels/zone_map.py:75",
+        launches=launches["key_range"],
+        max_abs_err=float((got.long() - want.long()).abs().max()),
+        **time_kernel(lambda: key_range(keys, valid), 200),
+        plain_ms=cuda_ms(lambda: ref.key_range_ref(flat_k, flat_v), 50),
+        bound_ms=b_ms, bound_by=b_by,
+        # The masked keys' compaction syncs the host on every call.
+        library_ms=cuda_ms(lambda: torch.aminmax(flat_k[flat_v]), 50),
+        shape=f"{tuple(keys.shape)} valid={int(flat_v.sum())}"))
+    report_kernels(rows)
+    return rows
+
+
+def report_kernels(rows: list) -> None:
     for r in rows:
         require(r["max_abs_err"] == 0, f"{r['name']} disagrees with its "
                 f"plain version at {r['shape']}")
         lib = ("none (no single PyTorch call computes it)"
                if r["library_ms"] is None else f"{r['library_ms']:.4f} ms")
-        print(f"  {r['name']:18s} {r['shape']:22s} kernel {r['ms']:.4f} ms, "
-              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
-              f"{r['plain_ms']:.4f} ms, library {lib}")
-    return rows
+        print(f"  {r['name']:18s} {r['shape']:22s} kernel {r['ms']:.4f} ms "
+              f"(device {r['device_ms']:.4f} ms), bound {r['bound_ms']:.5f} "
+              f"ms ({r['bound_by']}), plain {r['plain_ms']:.4f} ms, library "
+              f"{lib}")
 
 
 # ---------------------------------------------------------------------------
-# Phase 5: cross-checks
+# Phase 6: cross-checks
 # ---------------------------------------------------------------------------
 
-def check_golden(dev) -> None:
+def check_golden(catalog) -> None:
     from repro_torch.sql import (Executor, all_queries, default_strategies,
-                                 generate)
+                                 filtered_queries)
 
     gold = json.loads(GOLDEN.read_text())["queries"]
-    catalog = generate(0.1, 4, 42, device=dev)
     n = 0
-    for qname, plan in all_queries().items():
+    for qname, plan in {**all_queries(), **filtered_queries()}.items():
         for s in default_strategies():
             res = Executor(catalog, s).execute(plan)
             got = [{"method": d.selection.method.value,
@@ -442,7 +771,38 @@ def check_golden(dev) -> None:
                     f"{qname} {s.name}: decisions {got} differ from the "
                     "golden fixture")
             n += 1
-    print(f"  golden decisions at generate(0.1, 4, 42): {n} of {n} equal")
+    print(f"  golden decisions at generate(0.1, 4, 42), q1-q12 and "
+          f"unfiltered q19-q23: {n} of {n} equal")
+
+
+def check_filters_against_cpu(catalog) -> None:
+    """The filtered runs' decisions on the card equal the same runs on the
+    CPU, where the tests hold them against the JAX package."""
+    from repro_torch.sql import (Executor, FilteredStrategy,
+                                 default_strategies, filtered_queries,
+                                 generate)
+
+    on_cpu = generate(0.1, 4, 42, device="cpu")
+    n = 0
+    for qname, plan in filtered_queries().items():
+        for s in default_strategies():
+            got = Executor(catalog, FilteredStrategy(s)).execute(plan)
+            want = Executor(on_cpu, FilteredStrategy(s)).execute(plan)
+            decisions = [
+                [(f.plan, f.rows_before, f.rows_after, f.cached,
+                  f.network_bytes) for f in r.filters] + r.methods()
+                for r in (got, want)]
+            require(decisions[0] == decisions[1],
+                    f"{qname} {s.name}: card {decisions[0]} != cpu "
+                    f"{decisions[1]}")
+            require({f.plan.kind for f in got.filters} == {FILTER_KIND[qname]},
+                    f"{qname} {s.name}: card planned "
+                    f"{[f.plan.kind for f in got.filters]}")
+            require(got.network_bytes == want.network_bytes,
+                    f"{qname} {s.name}: network bytes")
+            n += 1
+    print(f"  filtered decisions at generate(0.1, 4, 42): card equals CPU "
+          f"in {n} of {n} runs")
 
 
 def check_gather_path(dev) -> None:
@@ -506,15 +866,27 @@ def main() -> int:
 
     print("== 3. kernels against their plain versions")
     check_kernels_edge_cases(dev)
+    check_filter_kernels_edge_cases(dev)
 
     print("== 4. main path")
-    launches, calls = run_main_path(dev, args.scale, p=8)
+    catalog = make_catalog(dev, args.scale, p=8)
+    launches, calls = run_main_path(catalog)
     print("  kernel timings at the main path's largest inputs "
           f"({smi}):")
     rows = measure_kernels(calls, launches)
 
-    print("== 5. cross-checks")
-    check_golden(dev)
+    print("== 5. runtime filters")
+    launches, calls = run_filter_path(catalog)
+    print("  filter kernel timings at the filter path's largest inputs "
+          f"({smi}):")
+    rows += measure_filter_kernels(calls, launches)
+    del catalog
+
+    print("== 6. cross-checks")
+    from repro_torch.sql import generate
+    small = generate(0.1, 4, 42, device=dev)
+    check_golden(small)
+    check_filters_against_cpu(small)
     check_gather_path(dev)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

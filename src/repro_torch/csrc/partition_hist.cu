@@ -21,6 +21,8 @@
 
 #include <cuda_runtime.h>
 
+#include "grid.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -70,25 +72,12 @@ __global__ void hist_global_bins(const int* __restrict__ dest, long long n,
   }
 }
 
-int sm_count() {
-  static int count = 0;
-  if (count == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
-    if (count <= 0) count = 1;
-  }
-  return count;
-}
-
 }  // namespace
 
 // dest: (n,) int32; out: (nd,) int32, zeroed by the caller; n >= 1, nd >= 1.
 extern "C" int repro_partition_hist(const void* dest, long long n, int nd,
                                     void* out, void* stream) {
-  const long long want = (n + kThreads - 1) / kThreads;
-  const long long cap = static_cast<long long>(sm_count()) * kBlocksPerSm;
-  const int blocks = static_cast<int>(want < cap ? want : cap);
+  const int blocks = repro::grid_stride_blocks(n, kThreads, kBlocksPerSm);
   auto s = static_cast<cudaStream_t>(stream);
   const int* d = static_cast<const int*>(dest);
   int* o = static_cast<int*>(out);

@@ -29,6 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_U = ctypes.c_uint
 
 #: C entry points and their argument types. Every one returns the
 #: ``cudaError_t`` of its launch (0 = launched).
@@ -36,6 +37,9 @@ SIGNATURES = {
     "repro_partition_hist": (_P, _LL, _I, _P, _P),
     "repro_tiled_probe": (_P, _P, _I, _I, _I, _P, _P),
     "repro_bitonic_sort": (_P, _P, _I, _I, _P, _P, _P),
+    "repro_bloom_build": (_P, _P, _LL, _I, _I, _U, _U, _P, _P),
+    "repro_bloom_probe": (_P, _LL, _P, _I, _I, _U, _U, _P, _P),
+    "repro_key_range": (_P, _P, _LL, _P, _P),
 }
 
 #: ptxas reports and timings of the last build in this process.

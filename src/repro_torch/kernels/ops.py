@@ -10,11 +10,14 @@ from __future__ import annotations
 import torch
 
 from .bitonic_sort import MAX_TILE, bitonic_sort_tile
+from .bloom import bloom_build, bloom_probe
 from .partition_hist import partition_hist
 from .tiled_probe import tiled_probe
+from .zone_map import key_range
 
 KERNELS = {"partition_hist": partition_hist, "tiled_probe": tiled_probe,
-           "bitonic_sort_tile": bitonic_sort_tile}
+           "bitonic_sort_tile": bitonic_sort_tile, "bloom_build": bloom_build,
+           "bloom_probe": bloom_probe, "key_range": key_range}
 
 
 def probe(a_keys: torch.Tensor, b_keys: torch.Tensor) -> torch.Tensor:

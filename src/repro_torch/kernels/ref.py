@@ -51,3 +51,74 @@ def bitonic_sort_ref(keys: torch.Tensor, values: torch.Tensor):
     """Stable ascending sort of each row's (key, value) pairs by key."""
     order = torch.argsort(keys, dim=-1, stable=True)
     return (torch.gather(keys, -1, order), torch.gather(values, -1, order))
+
+
+# ---------------------------------------------------------------------------
+# Runtime-filter kernels: bloom pair and zone-map min/max
+# ---------------------------------------------------------------------------
+
+#: Decorrelated murmur-style mix seeds of the bloom filter's two base
+#: hashes (the reference's ``kernels/bloom.py`` values); the CUDA kernels
+#: get them from the wrappers.
+BLOOM_SEED_1 = 0x165667B1
+BLOOM_SEED_2 = 0xD6E8FEB8
+
+#: The empty zone map [INT32_MAX, INT32_MIN]: lo > hi, matches nothing.
+INT32_MIN = torch.iinfo(torch.int32).min
+
+_MASK32 = 0xFFFFFFFF
+
+
+def bloom_positions(keys: torch.Tensor, i: int, m_bits: int) -> torch.Tensor:
+    """Bit position (int64) of hash ``i`` of each int32 key: double hashing
+    ``(h1 + i*h2) & (m_bits-1)``, h2 forced odd, in 32-bit arithmetic."""
+    # Imported here: ``joins`` imports the kernel wrappers, which import
+    # this module.
+    from ..joins.slots import hash32
+    h1 = hash32(keys, BLOOM_SEED_1)
+    h2 = hash32(keys, BLOOM_SEED_2) | 1
+    return ((h1 + ((i * h2) & _MASK32)) & _MASK32) & (m_bits - 1)
+
+
+def bloom_build_ref(keys: torch.Tensor, valid: torch.Tensor, m_bits: int,
+                    k: int) -> torch.Tensor:
+    """Bloom filter of the valid entries of flat int32 ``keys``: int32
+    ``(m_bits/32,)`` words holding the reference's uint32 bit patterns."""
+    live = keys[valid]
+    bitmap = torch.zeros(m_bits, dtype=torch.bool, device=keys.device)
+    for i in range(k):
+        bitmap[bloom_positions(live, i, m_bits)] = True
+    shifts = torch.arange(32, dtype=torch.int64, device=keys.device)
+    words = (bitmap.view(-1, 32).to(torch.int64) << shifts).sum(dim=1)
+    return _as_int32_bits(words)
+
+
+def bloom_probe_ref(keys: torch.Tensor, words: torch.Tensor, k: int
+                    ) -> torch.Tensor:
+    """True where every one of the k bits of a flat int32 key is set."""
+    m_bits = words.numel() * 32
+    w = words.to(torch.int64) & _MASK32
+    keep = torch.ones(keys.shape, dtype=torch.bool, device=keys.device)
+    for i in range(k):
+        pos = bloom_positions(keys, i, m_bits)
+        keep &= ((w[pos >> 5] >> (pos & 31)) & 1).bool()
+    return keep
+
+
+def key_range_ref(keys: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """int32 ``(2,)`` [min, max] of the valid entries of flat int32 keys;
+    the empty interval [INT32_MAX, INT32_MIN] when none is valid."""
+    out = torch.tensor([INT32_MAX, INT32_MIN], dtype=torch.int32,
+                       device=keys.device)
+    if keys.numel() == 0:
+        return out
+    lo = torch.where(valid, keys, INT32_MAX).amin()
+    hi = torch.where(valid, keys, INT32_MIN).amax()
+    return torch.stack([lo, hi]).to(torch.int32)
+
+
+def _as_int32_bits(words: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) -> int32 tensor of the same 32-bit
+    patterns."""
+    return torch.where(words >= 1 << 31, words - (1 << 32), words).to(
+        torch.int32)

@@ -17,6 +17,7 @@ import uuid
 from typing import Dict, Tuple
 
 import numpy as np
+import torch
 
 from ..core.stats import (ColumnStats, ColumnSummary,
                           column_stats_from_summary)
@@ -204,6 +205,27 @@ def catalog_from_numpy(tables: Dict[str, Dict[str, np.ndarray]], p: int,
                     for name, t in flat.items()}, p,
                    key_domains=dict(key_domains),
                    column_stats=compute_column_stats(flat))
+
+
+def payload_from_numpy(kind: str, arrays, device=None):
+    """A runtime-filter payload built elsewhere (numpy arrays, as the JAX
+    package's ``build_filter_payload`` returns them) as the port's payload
+    on ``device``: bloom uint32 words -> int32 words of the same bits, a
+    zone map's int32 ``(2,)`` interval, or a semi-join's ``(sorted_keys,
+    n)`` -> int32 keys and a 0-d int64 count."""
+    device = resolve_device(device)
+    if kind == "bloom":
+        words = np.ascontiguousarray(arrays, dtype=np.uint32).view(np.int32)
+        return torch.from_numpy(words.copy()).to(device)
+    if kind == "zone_map":
+        return torch.from_numpy(np.asarray(arrays, dtype=np.int32).copy()
+                                ).to(device)
+    if kind == "semi_join":
+        keys, n = arrays
+        return (torch.from_numpy(np.asarray(keys, dtype=np.int32).copy()
+                                 ).to(device),
+                torch.tensor(int(n), dtype=torch.int64, device=device))
+    raise ValueError(f"unknown filter kind {kind!r}")
 
 
 def compute_column_stats(tables: Dict[str, Table]) -> Dict[str, ColumnStats]:

@@ -1,9 +1,10 @@
-"""TPC-DS-shaped baseline query suite, q1-q12, as hand-built logical plans.
+"""TPC-DS-shaped query suites as hand-built logical plans: the baseline
+q1-q12 and the runtime-filter targets q19-q23.
 
 Their structural signatures equal those of the JAX package's SQL texts for
 the same queries (the reference pins ``signature(parse_sql(text)) ==
 signature(hand_built())``). The SQL text front end, and the planner-target,
-skew, filter and cyclic suites, come with later slices of the port.
+skew and cyclic suites, come with later slices of the port.
 
 The suite covers the decision space the paper evaluates:
 
@@ -136,6 +137,86 @@ def q12_anti() -> Node:
                 join_type=JoinType.LEFT_ANTI)
 
 
+# ---------------------------------------------------------------------------
+# Filter-friendly queries (runtime bloom-filter targets): star shapes whose
+# selective dimension predicate makes the probe side mostly dead weight at
+# its shuffle — a bloom filter over the surviving dimension keys, applied
+# to the fact below its exchanges, cuts the shipped bytes by ~1/sigma.
+# Selectivities are tuned so the big fact x customer joins stay in shuffle
+# territory (k < k0) with filters on AND off, so the saving shows up as
+# probe-side shuffle bytes rather than a method flip.
+# ---------------------------------------------------------------------------
+
+
+def q19_filtered_customer() -> Node:
+    """Fact x 30%-filtered customer (k ~ 3 << k0, shuffle both ways): the
+    canonical single-edge filter — ~70% of the fact never ships."""
+    f = Filter(Scan("customer"), "c_income", "lt", 74_000,
+               selectivity=0.3)
+    j = Join(_ss(), f, "ss_customer_sk", "c_customer_sk")
+    return Aggregate(j, "c_region", (("ss_net_profit", "sum"),))
+
+
+def q20_filter_below_earlier_exchange() -> Node:
+    """The *unfiltered* customer shuffle runs first in plan order; the
+    selective item predicate joins later. Leaf-level placement pushes the
+    item filter below the customer exchange, so the first shuffle already
+    ships only the ~10% of fact rows with surviving items."""
+    j = Join(_ss(), Scan("customer"), "ss_customer_sk", "c_customer_sk")
+    j = Join(j, Filter(Scan("item"), "i_category", "lt", 1, selectivity=0.1),
+             "ss_item_sk", "i_item_sk")
+    return Aggregate(j, "c_region", (("ss_sales_price", "sum"),))
+
+
+def q21_catalog_filtered_dates() -> Node:
+    """Catalog channel: the date predicate (1 quarter ~ 25%) sits on a tiny
+    broadcast dimension, yet its filter — pushed onto the fact leaf —
+    quarters the later customer join's shuffled bytes."""
+    j = Join(_cs(), Scan("customer"), "cs_bill_customer_sk", "c_customer_sk")
+    j = Join(j, Filter(Scan("date_dim"), "d_month", "between", 0, value2=2,
+                       selectivity=0.25), "cs_ship_date_sk", "d_date_sk")
+    return Aggregate(j, "c_region", (("cs_sales_price", "sum"),))
+
+
+# ---------------------------------------------------------------------------
+# Filter-kind targets (runtime-filter *framework*): queries whose cheapest
+# reducer is provably not a bloom filter, exercising the per-edge kind
+# selection. q22's dimension predicate is a range on the join key itself
+# (a TPC-DS date window filters d_date_sk between two dates), so the
+# surviving keys are one contiguous band — the 8-byte min/max zone map
+# keeps the same fraction as a bloom filter at a fraction of its broadcast
+# cost. q23's build side survives as a handful of stores, so the exact
+# sorted key list (32n bits, n ~ 5) undercuts even the minimum-size bloom
+# array (256 bits) with zero false positives — the semi-join reducer wins.
+# ---------------------------------------------------------------------------
+
+
+def q22_zone_map_window() -> Node:
+    """Date-window star: range predicate on the join key itself -> the
+    dimension's surviving keys form one band and the zone map is the
+    cheapest reducer. The unfiltered customer shuffle runs *first* in plan
+    order, so only the leaf-level zone map — pushed below that exchange —
+    can thin it to 25% of the fact (a 90-day window of the 360-day year)."""
+    f = Filter(Scan("date_dim"), "d_date_sk", "lt", 90,
+               selectivity=90 / 360)
+    j = Join(_ss(), Scan("customer"), "ss_customer_sk", "c_customer_sk")
+    j = Join(j, f, "ss_sold_date_sk", "d_date_sk")
+    return Aggregate(j, "c_region", (("ss_net_profit", "sum"),))
+
+
+def q23_semi_join_stores() -> Node:
+    """Tiny exact key set: ~5 of 60 stores survive the state predicate, so
+    the semi-join reducer's key list is smaller than the minimum bloom
+    array. Like q22, the customer shuffle runs first: the semi-join filter
+    on the store key, applied at the fact leaf, ships only ~8% of it. How
+    many stores survive depends on the catalog's seed: from 9 on, the key
+    list outweighs the 256-bit bloom filter and bloom wins (seed 0)."""
+    f = Filter(Scan("store"), "s_state", "eq", 0, selectivity=1 / 12)
+    j = Join(_ss(), Scan("customer"), "ss_customer_sk", "c_customer_sk")
+    j = Join(j, f, "ss_store_sk", "s_store_sk")
+    return Aggregate(j, "c_region", (("ss_sales_price", "sum"),))
+
+
 HAND_BUILT = {
     "q1_star3": q1_star3, "q2_chain7": q2_chain7,
     "q3_cross_channel": q3_cross_channel, "q4_agg_agg": q4_agg_agg,
@@ -146,7 +227,21 @@ HAND_BUILT = {
     "q12_anti": q12_anti,
 }
 
+FILTERED = {
+    "q19_filtered_customer": q19_filtered_customer,
+    "q20_filter_below_earlier_exchange": q20_filter_below_earlier_exchange,
+    "q21_catalog_filtered_dates": q21_catalog_filtered_dates,
+    "q22_zone_map_window": q22_zone_map_window,
+    "q23_semi_join_stores": q23_semi_join_stores,
+}
+
 
 def all_queries() -> Dict[str, Node]:
     """The 12 baseline plans, q1-q12."""
     return {name: build() for name, build in HAND_BUILT.items()}
+
+
+def filtered_queries() -> Dict[str, Node]:
+    """The runtime-filter targets q19-q23 (run them under
+    ``FilteredStrategy``)."""
+    return {name: build() for name, build in FILTERED.items()}

@@ -1,5 +1,6 @@
 """The port on an NVIDIA card: each CUDA kernel against its plain version,
-and the main path on the card against the same path on the CPU.
+and the main path and the runtime-filter path on the card against the same
+paths on the CPU.
 
 Every test here is marked ``cuda`` and skips without a card. The file
 imports neither JAX nor the JAX package, and uses no fixture of
@@ -15,8 +16,10 @@ import torch
 from repro_torch.joins.ref import rows_as_set, rows_close
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.bitonic_sort import bitonic_sort_tile
+from repro_torch.kernels.bloom import bloom_build, bloom_probe
 from repro_torch.kernels.partition_hist import partition_hist
 from repro_torch.kernels.tiled_probe import tiled_probe
+from repro_torch.kernels.zone_map import key_range
 
 pytestmark = pytest.mark.cuda
 
@@ -76,4 +79,68 @@ def test_main_path_on_the_card_equals_the_cpu(cuda):
             assert got.network_bytes == want.network_bytes, (name, s.name)
             assert rows_close(rows_as_set(got.table.to_numpy()),
                               rows_as_set(want.table.to_numpy())), name
-    assert all(n > 0 for n in ops.launch_counts().values())
+    counts = ops.launch_counts()
+    for kernel in ("partition_hist", "tiled_probe", "bitonic_sort_tile"):
+        assert counts[kernel] > 0, kernel
+
+
+def filter_keys(n, seed, shape=None):
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(-(2 ** 31), 2 ** 31 - 1, n, dtype=np.int64)
+    keys = keys.astype(np.int32)
+    keys[:min(n, 4)] = [0, -1, -(2 ** 31), 2 ** 31 - 1][:min(n, 4)]
+    valid = rng.random(n) < 0.5
+    if shape:
+        return keys.reshape(shape), valid.reshape(shape)
+    return keys, valid
+
+
+@pytest.mark.parametrize("n,shape", [(0, None), (1, None), (31, None),
+                                     (100_003, None), (3_000_000, (8, -1))])
+@pytest.mark.parametrize("m_bits,k", [(32, 1), (256, 7), (65536, 8),
+                                      (1 << 20, 8)])
+def test_bloom_pair_equals_plain(cuda, n, shape, m_bits, k):
+    keys, valid = filter_keys(n, n + m_bits, shape)
+    kc, vc = on(cuda, keys), on(cuda, valid)
+    words = bloom_build(kc, vc, m_bits=m_bits, k=k)
+    want = ref.bloom_build_ref(kc.reshape(-1), vc.reshape(-1), m_bits, k)
+    assert torch.equal(words, want)
+    keep = bloom_probe(kc, words, k=k)
+    assert keep.shape == kc.shape
+    assert torch.equal(keep.reshape(-1),
+                       ref.bloom_probe_ref(kc.reshape(-1), words, k))
+    assert bool(keep[vc].all())
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, 1000, 100_003, 3_000_000])
+@pytest.mark.parametrize("pattern", ["all", "none", "random"])
+def test_key_range_equals_plain(cuda, n, pattern):
+    keys, valid = filter_keys(n, n)
+    if pattern != "random":
+        valid[:] = pattern == "all"
+    kc, vc = on(cuda, keys), on(cuda, valid)
+    assert torch.equal(key_range(kc, vc), ref.key_range_ref(kc, vc))
+
+
+def test_filtered_path_on_the_card_equals_the_cpu(cuda):
+    from repro_torch.sql import (Executor, FilteredStrategy,
+                                 default_strategies, filtered_queries,
+                                 generate)
+    on_card = generate(0.1, 4, 42)
+    on_cpu = generate(0.1, 4, 42, device="cpu")
+    ops.reset_launch_counts()
+    for name, plan in filtered_queries().items():
+        for s in default_strategies():
+            got = Executor(on_card, FilteredStrategy(s)).execute(plan)
+            want = Executor(on_cpu, FilteredStrategy(s)).execute(plan)
+            assert [(f.plan, f.rows_before, f.rows_after)
+                    for f in got.filters] == \
+                [(f.plan, f.rows_before, f.rows_after)
+                 for f in want.filters], (name, s.name)
+            assert got.methods() == want.methods(), (name, s.name)
+            assert got.network_bytes == want.network_bytes, (name, s.name)
+            assert rows_close(rows_as_set(got.table.to_numpy()),
+                              rows_as_set(want.table.to_numpy())), name
+    counts = ops.launch_counts()
+    for kernel in ("bloom_build", "bloom_probe", "key_range"):
+        assert counts[kernel] > 0, kernel

@@ -42,7 +42,7 @@ def test_port_imports_with_jax_and_repro_blocked():
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 25  # every module of the slice
+    assert int(out.stdout.strip()) >= 30  # every module of both slices
 
 
 @pytest.mark.parametrize(
@@ -74,8 +74,10 @@ def test_kernel_wrappers_never_fall_back_off_the_cpu():
     """A tensor that is neither on the CPU nor launchable raises; only a
     CPU tensor takes the plain version."""
     from repro_torch.kernels.bitonic_sort import bitonic_sort_tile
+    from repro_torch.kernels.bloom import bloom_build, bloom_probe
     from repro_torch.kernels.partition_hist import partition_hist
     from repro_torch.kernels.tiled_probe import tiled_probe
+    from repro_torch.kernels.zone_map import key_range
     meta = torch.zeros(2, 8, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="expected cuda"):
         partition_hist(meta[0], nd=4)
@@ -83,13 +85,19 @@ def test_kernel_wrappers_never_fall_back_off_the_cpu():
         tiled_probe(meta, meta)
     with pytest.raises(ValueError, match="expected cuda"):
         bitonic_sort_tile(meta, meta)
+    with pytest.raises(ValueError, match="expected cuda"):
+        bloom_build(meta, m_bits=64, k=2)
+    with pytest.raises(ValueError, match="expected cuda"):
+        bloom_probe(meta, meta[0], k=2)
+    with pytest.raises(ValueError, match="expected cuda"):
+        key_range(meta)
 
 
 def test_kernel_sources_export_every_declared_entry_point():
     from repro_torch.kernels import build
     names = {s.name for s in build.sources()}
     assert names == {"partition_hist.cu", "tiled_probe.cu",
-                     "bitonic_sort.cu"}
+                     "bitonic_sort.cu", "bloom.cu", "zone_map.cu"}
     text = "".join(s.read_text() for s in build.sources())
     for entry in (*build.SIGNATURES, "repro_error_string"):
         assert f" {entry}(" in text

@@ -218,5 +218,10 @@ def test_plain_versions_do_not_count_launches():
                 torch.zeros(2, 8, dtype=torch.int32))
     bitonic_sort_tile(torch.zeros(2, 8, dtype=torch.int32),
                       torch.zeros(2, 8, dtype=torch.int32))
+    words = ops.bloom_build(torch.zeros(8, dtype=torch.int32), m_bits=64,
+                            k=2)
+    ops.bloom_probe(torch.zeros(8, dtype=torch.int32), words, k=2)
+    ops.key_range(torch.zeros(8, dtype=torch.int32))
     assert ops.launch_counts() == {"partition_hist": 0, "tiled_probe": 0,
-                                   "bitonic_sort_tile": 0}
+                                   "bitonic_sort_tile": 0, "bloom_build": 0,
+                                   "bloom_probe": 0, "key_range": 0}
