@@ -28,15 +28,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    after); then the suite again against one shared ``FilterCache``, warm;
    one pass under ``torch.profiler``; then the filter kernels timed at
    their largest inputs, as in phase 4;
-6. cross-checks: the q1-q12 and (unfiltered) q19-q23 decisions at
-   ``generate(0.1, 4, 42)`` equal the golden fixture, the filtered runs'
-   filters and methods there equal those of the same runs on the CPU, and
-   at scale 3 the gather path (``use_kernel=False``) gives the rows of the
-   kernel path.
+5b. reordering and the hypercube on the same catalog: q13-q15 and q35-q37
+   under ``ReorderingStrategy(s)`` for each default strategy, and q35-q37
+   also with ``hypercube=False``, after a warm-up pass: every run gives the
+   rows of the unreordered run, q35-q37 select the hypercube multi-way join
+   under ``Reorder(RelJoin)``, and the fused three-way probe
+   (``tiled_probe3``) launched (counts set to 0 just before the pass and
+   read just after); the cube's network bytes beside the binary arm's; one
+   pass under ``torch.profiler``; then ``tiled_probe3`` timed at its
+   largest input, as in phase 4;
+6. cross-checks: the decisions at ``generate(0.1, 4, 42)`` of q1-q15, the
+   unfiltered q19-q23 and q35-q37 under the four default strategies, of
+   q13-q15 and q35-q37 under ``Reorder(RelJoin)``, and ``optimize``'s
+   reordering and plan signature for every query, equal the golden fixture;
+   the filtered runs' filters and methods there equal those of the same
+   runs on the CPU; and at scale 3 the gather path (``use_kernel=False``)
+   gives the rows of the kernel path.
 
-It prints one JSON line of kernel measurements, the card's name and power
-limit, and as its last line ``{"ok": true, "device": {...}}``. It needs no
-network; it imports nothing of the JAX package.
+Each phase prints its wall time. It prints one JSON line of kernel
+measurements, the card's name and power limit, and as its last line
+``{"ok": true, "device": {...}}``. It needs no network; it imports nothing
+of the JAX package.
 """
 
 from __future__ import annotations
@@ -200,6 +212,46 @@ def check_kernels_edge_cases(dev) -> None:
     print(f"  bitonic_sort_tile: {n_cases} cases agree with the plain "
           "version (sorted keys equal, values address them)")
 
+    check_probe3_edge_cases(dev)
+
+
+def check_probe3_edge_cases(dev) -> None:
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.tiled_probe import tiled_probe3
+
+    rng = np.random.default_rng(2)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    extremes = [-1, -2, -(2 ** 31), 2 ** 31 - 1]
+    n_cases = 0
+    for bsz in (1, 8):
+        for na in (1, 255, 256, 257, 70_000):
+            for nb, nc in ((0, 1), (1, 0), (1, 7), (300, 4700),
+                           (4700, 1300)):
+                # Keys drawn from half the longer build's length: duplicate
+                # build keys (first match matters), hits and misses.
+                hi = max(nb, nc) // 2 + 2
+                keys = [rng.integers(-2, hi, (bsz, n)).astype(np.int32)
+                        for n in (na, na, nb, nc)]
+                for k in keys:
+                    k.reshape(-1)[:4] = extremes[:k.size]
+                a1, a2, b, c = (t(k) for k in keys)
+                got = tiled_probe3(a1, a2, b, c)
+                want = ref.tiled_probe3_ref(a1, a2, b, c)
+                require(torch.equal(got[0], want[0])
+                        and torch.equal(got[1], want[1]),
+                        f"tiled_probe3 B={bsz} na={na} nb={nb} nc={nc}")
+                n_cases += 1
+    got = tiled_probe3(t(np.array([5, -1, 9, -2], np.int32)),
+                       t(np.array([-1, 4, 4, 7], np.int32)),
+                       t(np.array([1, 5, -1, 5, -2], np.int32)),
+                       t(np.array([4, -1, 4], np.int32)))
+    require([o.tolist() for o in got] == [[1, 2, -1, 4], [1, 0, 0, -1]],
+            "tiled_probe3 sentinels and first-match values")
+    print(f"  tiled_probe3: {n_cases + 1} cases equal to the plain version")
+
 
 def check_filter_kernels_edge_cases(dev) -> None:
     import numpy as np
@@ -280,10 +332,12 @@ class LargestInputs:
                  "bitonic_sort_tile": lambda k, v: k.numel(),
                  "bloom_build": lambda keys, *a, **kw: keys.numel(),
                  "bloom_probe": lambda keys, *a, **kw: keys.numel(),
-                 "key_range": lambda keys, *a, **kw: keys.numel()}
+                 "key_range": lambda keys, *a, **kw: keys.numel(),
+                 "tiled_probe3": lambda a1, a2, b, c: a1.numel() * (
+                     b.shape[-1] + c.shape[-1])}
         callers = {"partition_hist": exchange, "tiled_probe": ops,
                    "bitonic_sort_tile": ops, "bloom_build": rf,
-                   "bloom_probe": rf, "key_range": rf}
+                   "bloom_probe": rf, "key_range": rf, "tiled_probe3": ops}
         saved = {name: getattr(mod, name) for name, mod in callers.items()}
         for name, mod in callers.items():
             setattr(mod, name, self.wrap(name, saved[name], sizes[name]))
@@ -752,27 +806,186 @@ def report_kernels(rows: list) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phase 5b: reordering and the hypercube
+# ---------------------------------------------------------------------------
+
+#: The queries whose ``Reorder(RelJoin)`` run takes the hypercube multi-way
+#: join at this catalog's scale, as the reference planner selects it there.
+CUBE_QUERIES = ("q35_triangle", "q36_triangle_shared_axis",
+                "q37_four_clique")
+
+
+def run_reorder_path(catalog):
+    import numpy as np
+
+    from repro_torch.core.cost_model import JoinMethod
+    from repro_torch.joins.ref import rows_as_set, rows_close
+    from repro_torch.kernels import ops
+    from repro_torch.sql import (Executor, ReorderingStrategy,
+                                 cyclic_queries, default_strategies,
+                                 misordered_queries)
+
+    queries = {**misordered_queries(), **cyclic_queries()}
+    cyclic, strategies = cyclic_queries(), default_strategies()
+    require(sorted(cyclic) == sorted(CUBE_QUERIES), "q35-q37 suite")
+
+    def runs():
+        """(query, strategy, arm) of the reported pass: every query under
+        ``Reorder(s)``, and the cyclic ones also with ``hypercube=False``."""
+        for qname in queries:
+            for s in strategies:
+                yield qname, s, "reorder"
+                if qname in cyclic:
+                    yield qname, s, "binary"
+
+    def run_pass():
+        for qname, s, arm in runs():
+            ex = Executor(catalog, ReorderingStrategy(s),
+                          hypercube=arm == "reorder")
+            yield qname, s, arm, ex.execute(queries[qname])
+
+    t_warm = time.perf_counter()
+    for _ in run_pass():  # first calls of every torch op, not reported
+        pass
+    base = {}
+    for qname, plan in queries.items():
+        for s in strategies:
+            res = Executor(catalog, s).execute(plan)
+            base[(qname, s.name)] = rows_as_set(res.table.to_numpy())
+    print(f"  warm-up pass and the unreordered runs: "
+          f"{time.perf_counter() - t_warm:.1f} s")
+
+    spy = LargestInputs()
+    results = {}
+    ops.reset_launch_counts()
+    t_phase = time.perf_counter()
+    with spy.installed():
+        before = ops.launch_counts()
+        for qname, s, arm, res in run_pass():
+            after = ops.launch_counts()
+            delta = ",".join(str(after[k] - before[k]) for k in after)
+            before = after
+            cols = res.table.to_numpy()
+            results[(qname, s.name, arm)] = res
+            print(f"  {qname:24s} Reorder({s.name:12s}) {arm:7s} "
+                  f"{','.join(m.value for m in res.methods()):52s} "
+                  f"net={res.network_bytes:.0f} rows={res.rows} "
+                  f"wall={res.wall_time_s:.4f}s launches={delta}")
+            require(rows_close(rows_as_set(cols), base[(qname, s.name)]),
+                    f"{qname} Reorder({s.name}) {arm}: rows differ from the "
+                    "unreordered run")
+            for name, c in cols.items():
+                if c.dtype.kind == "f":
+                    require(bool(np.isfinite(c).all()),
+                            f"{qname} {s.name} {arm}: non-finite {name}")
+            if arm == "binary":
+                require(JoinMethod.HYPERCUBE_SHUFFLE not in res.methods(),
+                        f"{qname} {s.name}: hypercube=False took the cube")
+    launches = ops.launch_counts()
+    print(f"  reorder path: {time.perf_counter() - t_phase:.1f} s for "
+          f"{len(results)} runs; launches {launches}")
+    for qname in CUBE_QUERIES:
+        res = results[(qname, "RelJoin(w=1)", "reorder")]
+        require(res.methods() == [JoinMethod.HYPERCUBE_SHUFFLE],
+                f"{qname} Reorder(RelJoin): methods {res.methods()}, not the "
+                "hypercube")
+    require(launches["tiled_probe3"] >= 2,
+            f"tiled_probe3 launched {launches['tiled_probe3']} times on the "
+            "reorder path (q35 and q36 take the fused branch)")
+
+    print("  cube against binary arm, Reorder(s): network bytes, wall ms")
+    for qname in CUBE_QUERIES:
+        cells = []
+        for s in strategies:
+            c = results[(qname, s.name, "reorder")]
+            b = results[(qname, s.name, "binary")]
+            cells.append(f"{s.name} {c.network_bytes:.0f} vs "
+                         f"{b.network_bytes:.0f}, {c.wall_time_s * 1e3:.2f} "
+                         f"vs {b.wall_time_s * 1e3:.2f}")
+        print(f"    {qname:24s} " + " | ".join(cells))
+    for s in strategies:
+        suite = [results[(q, s.name, "reorder")] for q in queries]
+        print(f"    suite Reorder({s.name:12s}) network "
+              f"{sum(r.network_bytes for r in suite):.0f}, wall "
+              f"{sum(r.wall_time_s for r in suite) * 1e3:.2f} ms")
+
+    profile_pass(run_pass)
+    return launches, spy.calls
+
+
+def measure_probe3(calls: dict, launches: dict) -> list:
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.tiled_probe import tiled_probe3
+
+    _, (a1, a2, b, c), _ = calls["tiled_probe3"]
+    bsz, na = a1.shape
+    nb, nc = b.shape[1], c.shape[1]
+    got = tiled_probe3(a1, a2, b, c)
+    want = ref.tiled_probe3_ref(a1, a2, b, c)
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    # Compares this data needs: each side up to its first hit, all of its
+    # build on a miss.
+    compares = float(torch.where(want[0] >= 0, want[0] + 1, nb).sum()
+                     + torch.where(want[1] >= 0, want[1] + 1, nc).sum())
+    b_ms, b_by = bound(4 * (4 * bsz * na + bsz * (nb + nc)), compares)
+    hits = float((want[0] >= 0).float().mean()), float(
+        (want[1] >= 0).float().mean())
+    valid = float((a1 != -1).float().mean())
+    row = dict(
+        name="tiled_probe3", route="cuda",
+        source="src/repro_torch/csrc/tiled_probe3.cu",
+        replaces="src/repro/kernels/tiled_probe.py:146",
+        launches=launches["tiled_probe3"], max_abs_err=err,
+        **time_kernel(lambda: tiled_probe3(a1, a2, b, c), 10),
+        plain_ms=cuda_ms(lambda: ref.tiled_probe3_ref(a1, a2, b, c), 2),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=f"B={bsz} na={na} nb={nb} nc={nc}")
+    print(f"  tiled_probe3 input: {valid:.3f} of the probe slots hold a "
+          f"row; hit rates {hits[0]:.3f} and {hits[1]:.3f}; "
+          f"{compares:.4g} compares")
+    report_kernels([row])
+    return [row]
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: cross-checks
 # ---------------------------------------------------------------------------
 
 def check_golden(catalog) -> None:
-    from repro_torch.sql import (Executor, all_queries, default_strategies,
-                                 filtered_queries)
+    from repro_torch.sql import (Executor, RelJoinStrategy,
+                                 ReorderingStrategy, cyclic_queries,
+                                 default_strategies, every_query,
+                                 filtered_queries, misordered_queries,
+                                 optimize, signature)
 
     gold = json.loads(GOLDEN.read_text())["queries"]
-    n = 0
-    for qname, plan in {**all_queries(), **filtered_queries()}.items():
-        for s in default_strategies():
+    reordered = {**misordered_queries(), **cyclic_queries()}
+    n = n_dp = 0
+    for qname, plan in {**every_query(), **filtered_queries(),
+                        **cyclic_queries()}.items():
+        strategies = [(s.name, s) for s in default_strategies()]
+        if qname in reordered:
+            strategies.append(("Reorder(RelJoin(w=1))",
+                               ReorderingStrategy(RelJoinStrategy())))
+        for name, s in strategies:
             res = Executor(catalog, s).execute(plan)
             got = [{"method": d.selection.method.value,
                     "swapped": bool(d.selection.swapped_sides)}
                    for d in res.decisions]
-            require(got == gold[qname]["strategies"][s.name],
-                    f"{qname} {s.name}: decisions {got} differ from the "
+            require(got == gold[qname]["strategies"][name],
+                    f"{qname} {name}: decisions {got} differ from the "
                     "golden fixture")
             n += 1
-    print(f"  golden decisions at generate(0.1, 4, 42), q1-q12 and "
-          f"unfiltered q19-q23: {n} of {n} equal")
+        opt = optimize(plan, catalog)
+        dp = {"reordered": opt.reordered, "signature": signature(opt.plan)}
+        require(dp == gold[qname]["dp"],
+                f"{qname}: optimize gives {dp}, not the golden dp entry")
+        n_dp += 1
+    print(f"  golden decisions at generate(0.1, 4, 42), q1-q15, unfiltered "
+          f"q19-q23 and q35-q37 (Reorder(RelJoin) on q13-q15 and q35-q37): "
+          f"{n} of {n} equal; dp entries {n_dp} of {n_dp} equal")
 
 
 def check_filters_against_cpu(catalog) -> None:
@@ -830,6 +1043,15 @@ def check_gather_path(dev) -> None:
 # ---------------------------------------------------------------------------
 
 
+@contextlib.contextmanager
+def phase(title: str):
+    """Print a phase's title, and its wall time when it ends."""
+    print(f"== {title}")
+    t0 = time.perf_counter()
+    yield
+    print(f"  phase wall time: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--scale", type=float, default=30.0,
@@ -844,50 +1066,57 @@ def main() -> int:
 
     dev = torch.device("cuda")
     smi = nvidia_smi()
-    print("== 1. environment")
-    print(smi)
-    print(f"torch {torch.__version__} CUDA {torch.version.cuda} "
-          f"device {torch.cuda.get_device_name(0)}")
-    nvcc = build.find_nvcc()
-    version = subprocess.run([nvcc, "--version"], capture_output=True,
-                             text=True, check=True).stdout
-    print(" ".join(line.strip() for line in version.splitlines()
-                   if "release" in line or line.startswith("Build")))
+    with phase("1. environment"):
+        print(smi)
+        print(f"torch {torch.__version__} CUDA {torch.version.cuda} "
+              f"device {torch.cuda.get_device_name(0)}")
+        nvcc = build.find_nvcc()
+        version = subprocess.run([nvcc, "--version"], capture_output=True,
+                                 text=True, check=True).stdout
+        print(" ".join(line.strip() for line in version.splitlines()
+                       if "release" in line or line.startswith("Build")))
 
-    print("== 2. build")
-    t0 = time.perf_counter()
-    build.library()
-    print(f"  built {', '.join(s.name for s in build.sources())} in "
-          f"{time.perf_counter() - t0:.1f} s (cached={build.build_log['cached']})")
-    for src, report in build.build_log.get("ptxas", {}).items():
-        for line in report.splitlines():
-            if "Used" in line:
-                print(f"  {src}: {line.strip()}")
+    with phase("2. build"):
+        t0 = time.perf_counter()
+        build.library()
+        print(f"  built {', '.join(s.name for s in build.sources())} in "
+              f"{time.perf_counter() - t0:.1f} s "
+              f"(cached={build.build_log['cached']})")
+        for src, report in build.build_log.get("ptxas", {}).items():
+            for line in report.splitlines():
+                if "Used" in line:
+                    print(f"  {src}: {line.strip()}")
 
-    print("== 3. kernels against their plain versions")
-    check_kernels_edge_cases(dev)
-    check_filter_kernels_edge_cases(dev)
+    with phase("3. kernels against their plain versions"):
+        check_kernels_edge_cases(dev)
+        check_filter_kernels_edge_cases(dev)
 
-    print("== 4. main path")
-    catalog = make_catalog(dev, args.scale, p=8)
-    launches, calls = run_main_path(catalog)
-    print("  kernel timings at the main path's largest inputs "
-          f"({smi}):")
-    rows = measure_kernels(calls, launches)
+    with phase("4. main path"):
+        catalog = make_catalog(dev, args.scale, p=8)
+        launches, calls = run_main_path(catalog)
+        print("  kernel timings at the main path's largest inputs "
+              f"({smi}):")
+        rows = measure_kernels(calls, launches)
 
-    print("== 5. runtime filters")
-    launches, calls = run_filter_path(catalog)
-    print("  filter kernel timings at the filter path's largest inputs "
-          f"({smi}):")
-    rows += measure_filter_kernels(calls, launches)
-    del catalog
+    with phase("5. runtime filters"):
+        launches, calls = run_filter_path(catalog)
+        print("  filter kernel timings at the filter path's largest inputs "
+              f"({smi}):")
+        rows += measure_filter_kernels(calls, launches)
 
-    print("== 6. cross-checks")
-    from repro_torch.sql import generate
-    small = generate(0.1, 4, 42, device=dev)
-    check_golden(small)
-    check_filters_against_cpu(small)
-    check_gather_path(dev)
+    with phase("5b. reordering and the hypercube"):
+        launches, calls = run_reorder_path(catalog)
+        print("  tiled_probe3 timing at the reorder path's largest input "
+              f"({smi}):")
+        rows += measure_probe3(calls, launches)
+        del catalog
+
+    with phase("6. cross-checks"):
+        from repro_torch.sql import generate
+        small = generate(0.1, 4, 42, device=dev)
+        check_golden(small)
+        check_filters_against_cpu(small)
+        check_gather_path(dev)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -9,8 +9,9 @@ Every exchange returns an ``ExchangeReport`` whose byte counts are *measured*
 hottest destination partition, counted with the ``partition_hist`` kernel —
 is the skew signal: under Zipf keys it, not the mean, bounds wall-clock.
 
-The salted shuffle, hot-bucket detection, ``key_skew`` and the hypercube
-exchange come with the skew and hypercube slices of the port.
+The hypercube exchange replicates rows along the cube axes a relation does
+not own. The salted shuffle, hot-bucket detection and ``key_skew`` come with
+the skew slice of the port.
 """
 
 from __future__ import annotations
@@ -120,3 +121,70 @@ def shuffle(table: Table, key: str, capacity_factor: float = 2.0
     pair_cap = pair_capacity(cap, p, capacity_factor)
     dest = _dest_partition(table.column(key), p)  # (p, cap)
     return _exchange_by_dest(table, dest, pair_cap, key)
+
+
+# ---------------------------------------------------------------------------
+# Hypercube replication exchange (multi-way joins on cyclic join graphs).
+# ---------------------------------------------------------------------------
+
+
+def hypercube_shuffle(table: Table, dims: tuple[int, ...],
+                      axis_keys: tuple[tuple[int, str], ...],
+                      capacity_factor: float = 2.0
+                      ) -> tuple[Table, ExchangeReport]:
+    """Hypercube exchange: the p partitions are a cube of shape ``dims``
+    (one axis per join variable, prod(dims) = p, C-order flattening) and
+    ``axis_keys`` lists the (axis, key column) pairs this relation *owns*.
+
+    Each row is hash-partitioned on its owned axes' coordinates
+    (``hash(key) % dims[axis]``, the same hash both sides of a shared
+    variable use) and **replicated** along every axis the relation does not
+    own — one copy per combination of free-axis coordinates, a factor
+    f = p / prod(owned shares). Any tuple of rows agreeing on all shared
+    variables therefore meets on exactly one partition, which is what lets
+    the local multi-way probe evaluate a cyclic core without binary
+    intermediates. Network workload is *measured* over all f copies —
+    ground truth for the modeled replication volume |R| * (p / p_i).
+
+    Degenerate cases fall out naturally: at p = 1 (all shares 1) nothing
+    moves, and a flat mesh (one axis of share p, everything else share 1)
+    reproduces a plain key shuffle for the axis owner.
+    """
+    if not table.stacked:
+        raise ValueError("hypercube_shuffle expects a stacked table")
+    p = 1
+    for d in dims:
+        p *= d
+    if p != table.num_partitions:
+        raise ValueError(f"cube {dims} has {p} cells but table has "
+                         f"{table.num_partitions} partitions")
+    owned = {ax for ax, _ in axis_keys}
+    if any(ax < 0 or ax >= len(dims) for ax in owned):
+        raise ValueError(f"axis out of range for cube {dims}: {axis_keys}")
+    free = [ax for ax in range(len(dims)) if ax not in owned]
+    f = 1
+    for ax in free:
+        f *= dims[ax]
+    # C-order flat index: stride of axis j is prod(dims[j+1:]).
+    strides = [1] * len(dims)
+    for j in range(len(dims) - 2, -1, -1):
+        strides[j] = strides[j + 1] * dims[j + 1]
+    cap = table.capacity
+    wide_cols = {n: c.repeat(1, f) for n, c in table.columns.items()}
+    wide_valid = table.valid.repeat(1, f)
+    dest = torch.zeros(wide_valid.shape, dtype=torch.int32,
+                       device=wide_valid.device)
+    for ax, col in axis_keys:
+        coord = (hash32(wide_cols[col], SHUFFLE_SEED) % dims[ax]).to(
+            torch.int32)
+        dest = dest + coord * strides[ax]
+    # Replica r of a row takes the r-th combination of free-axis
+    # coordinates (mixed radix over the free shares).
+    rem = torch.arange(f, dtype=torch.int32, device=dest.device
+                       ).repeat_interleave(cap)[None, :]
+    for ax in free:
+        dest = dest + (rem % dims[ax]) * strides[ax]
+        rem = rem // dims[ax]
+    wide = Table(wide_cols, wide_valid)
+    pair_cap = pair_capacity(cap * f, p, capacity_factor)
+    return _exchange_by_dest(wide, dest, pair_cap, None, kind="hypercube")

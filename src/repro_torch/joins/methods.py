@@ -10,8 +10,10 @@ the matched build-side payload columns, and a per-method JoinReport with
 Join types: inner, left_outer, left_semi, left_anti (probe side preserved;
 the engine puts the larger table on the probe side as §3.1.4 prescribes).
 
-The nested-loop and cartesian methods, the salted shuffle hash join and the
-hypercube multi-way join come with later slices of the port.
+The hypercube multi-way join evaluates a cyclic join core in one
+replication exchange per relation and one local probe chain per partition.
+The nested-loop and cartesian methods and the salted shuffle hash join come
+with later slices of the port.
 """
 
 from __future__ import annotations
@@ -22,8 +24,10 @@ import math
 import torch
 
 from ..core.cost_model import JoinMethod
-from .exchange import broadcast, shuffle
-from .local_join import LocalJoinResult, hash_join, sort_join
+from ..kernels import ops as kops
+from .exchange import ExchangeReport, broadcast, hypercube_shuffle, shuffle
+from .local_join import (A_SENTINEL, B_SENTINEL, LocalJoinResult, hash_join,
+                         sort_join)
 from .slots import gather_rows
 from .table import Table
 
@@ -136,6 +140,117 @@ def shuffle_sort_join(a: Table, b: Table, a_key: str, b_key: str,
     merge_bytes = a_rows * a_sh.row_bytes + b_rows * b_sh.row_bytes
     rep = JoinReport(JoinMethod.SHUFFLE_SORT, [ex_a, ex_b],
                      float(sort_bytes + merge_bytes), out.count())
+    return out, rep
+
+
+# ---------------------------------------------------------------------------
+# Hypercube multi-way shuffle join (cyclic join graphs).
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class HypercubeLink:
+    """One equi-edge of the local multi-way probe: look up ``probe_col`` of
+    the accumulated probe row (a relation-0 column, or a column gathered
+    from an earlier link's build) in ``build_col`` of relation ``build``."""
+
+    build: int       # index into the relation list (>= 1)
+    probe_col: str   # key column available on the accumulated probe row
+    build_col: str   # unique key column of the build relation
+
+
+@dataclasses.dataclass(frozen=True)
+class HypercubeSpec:
+    """Physical plan of one hypercube multi-way join.
+
+    ``dims`` is the cube shape (prod = p, one axis per join variable);
+    ``axis_keys[i]`` lists relation i's owned (axis, key column) pairs —
+    it is hash-partitioned on those and replicated along the rest.
+    ``links`` are resolved in order; ``checks`` are the closing column
+    equalities evaluated on the fully joined row (the cyclic edges the
+    binary engine would have to re-shuffle for).
+    """
+
+    dims: tuple
+    axis_keys: tuple
+    links: tuple
+    checks: tuple
+
+
+def _sanitized(t: Table, col: str, sentinel: int) -> torch.Tensor:
+    return torch.where(t.valid, t.column(col), sentinel).to(torch.int32)
+
+
+def _add_columns(cols: dict, gathered: dict) -> None:
+    for name, col in gathered.items():
+        if name in cols:
+            raise ValueError(f"duplicate column {name!r} in multi-way join")
+        cols[name] = col
+
+
+def hypercube_multiway_join(tables: list, spec: HypercubeSpec,
+                            capacity_factor: float = 2.0,
+                            use_kernel: bool = False
+                            ) -> tuple[Table, JoinReport]:
+    """Hypercube multi-way shuffle join: one replication exchange per
+    relation, then a single local probe chain per partition — no binary
+    intermediates ever cross the network.
+
+    Every relation is cube-partitioned by ``hypercube_shuffle``; because
+    each output tuple's variable assignment lands on exactly one cube cell
+    and the build key columns are globally unique, a chain of first-match
+    local probes plus the closing ``checks`` produces each result row
+    exactly once (no cross-partition dedup needed). The probe relation is
+    index 0; its rows (with gathered build payloads) form the output.
+
+    With ``use_kernel``, two links and both probe columns on the probe
+    shard, both links are resolved by one fused ``tiled_probe3`` call over
+    every partition (a dense in-partition match); otherwise each link is a
+    radix ``hash_join`` of every partition.
+    """
+    shards: list[Table] = []
+    exs: list[ExchangeReport] = []
+    for t, ak in zip(tables, spec.axis_keys):
+        sh, ex = hypercube_shuffle(t, spec.dims, tuple(ak), capacity_factor)
+        shards.append(sh)
+        exs.append(ex)
+
+    probe = shards[0]
+    cols = dict(probe.columns)
+    valid = probe.valid
+
+    fused = (use_kernel and len(spec.links) == 2
+             and all(lk.probe_col in probe.columns for lk in spec.links))
+    if fused:
+        l1, l2 = spec.links
+        b1, b2 = shards[l1.build], shards[l2.build]
+        idx1, idx2 = kops.probe3(
+            _sanitized(probe, l1.probe_col, A_SENTINEL),
+            _sanitized(probe, l2.probe_col, A_SENTINEL),
+            _sanitized(b1, l1.build_col, B_SENTINEL),
+            _sanitized(b2, l2.build_col, B_SENTINEL))
+        for b, idx in ((b1, idx1), (b2, idx2)):
+            _add_columns(cols, gather_rows(b.columns, idx.clamp(min=0))[0])
+            valid = valid & (idx >= 0)
+    else:
+        for lk in spec.links:
+            b = shards[lk.build]
+            res = hash_join(cols[lk.probe_col], valid, b.column(lk.build_col),
+                            b.valid, use_kernel=use_kernel)
+            _add_columns(cols, gather_rows(b.columns,
+                                           res.match_idx.clamp(min=0))[0])
+            valid = valid & res.found
+
+    for c1, c2 in spec.checks:
+        valid = valid & (cols[c1] == cols[c2])
+
+    out = Table(cols, valid)
+    # Measured local workload mirrors the binary methods' convention: one
+    # probe pass over the (replicated) probe side, build + probe touch of
+    # each (replicated) build side.
+    local = float(probe.count() * probe.row_bytes
+                  + sum(2.0 * s.count() * s.row_bytes for s in shards[1:]))
+    rep = JoinReport(JoinMethod.HYPERCUBE_SHUFFLE, exs, local, out.count())
     return out, rep
 
 

@@ -12,18 +12,27 @@ import torch
 from .bitonic_sort import MAX_TILE, bitonic_sort_tile
 from .bloom import bloom_build, bloom_probe
 from .partition_hist import partition_hist
-from .tiled_probe import tiled_probe
+from .tiled_probe import tiled_probe, tiled_probe3
 from .zone_map import key_range
 
 KERNELS = {"partition_hist": partition_hist, "tiled_probe": tiled_probe,
            "bitonic_sort_tile": bitonic_sort_tile, "bloom_build": bloom_build,
-           "bloom_probe": bloom_probe, "key_range": key_range}
+           "bloom_probe": bloom_probe, "key_range": key_range,
+           "tiled_probe3": tiled_probe3}
 
 
 def probe(a_keys: torch.Tensor, b_keys: torch.Tensor) -> torch.Tensor:
     """First-match index of each probe key in its row's build keys (-1 if
     none)."""
     return tiled_probe(a_keys, b_keys)
+
+
+def probe3(a1_keys: torch.Tensor, a2_keys: torch.Tensor,
+           b_keys: torch.Tensor, c_keys: torch.Tensor
+           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused two-build first-match probe (the hypercube's three-way local
+    join), every partition in one call."""
+    return tiled_probe3(a1_keys, a2_keys, b_keys, c_keys)
 
 
 def hist(dest: torch.Tensor, nd: int) -> torch.Tensor:

@@ -12,8 +12,9 @@ import torch
 
 INT32_MAX = torch.iinfo(torch.int32).max
 
-#: Elements of the (rows, na, nb) equality block the probe oracle builds at
-#: once; larger batches are cut into row chunks.
+#: Elements of the (rows, probe slots, nb) equality block the probe oracles
+#: build at once; larger inputs are cut into chunks of batch rows and, where
+#: one row alone is larger, of probe slots.
 _PROBE_BLOCK = 1 << 24
 
 
@@ -37,14 +38,27 @@ def tiled_probe_ref(a_keys: torch.Tensor, b_keys: torch.Tensor
     if na == 0 or nb == 0:
         return out
     col = torch.arange(nb, dtype=torch.int32, device=a_keys.device)
-    step = max(1, _PROBE_BLOCK // (na * nb))
-    for r0 in range(0, bsz, step):
-        a = a_keys[r0:r0 + step]
-        b = b_keys[r0:r0 + step]
-        eq = a[:, :, None] == b[:, None, :]
-        first = torch.where(eq, col, INT32_MAX).amin(dim=2)
-        out[r0:r0 + step] = torch.where(first == INT32_MAX, -1, first)
+    rows = max(1, _PROBE_BLOCK // (na * nb))
+    slots = na if rows > 1 else max(1, _PROBE_BLOCK // nb)
+    for r0 in range(0, bsz, rows):
+        b = b_keys[r0:r0 + rows, None, :]
+        for i0 in range(0, na, slots):
+            eq = a_keys[r0:r0 + rows, i0:i0 + slots, None] == b
+            first = torch.where(eq, col, INT32_MAX).amin(dim=2)
+            out[r0:r0 + rows, i0:i0 + slots] = torch.where(
+                first == INT32_MAX, -1, first)
     return out
+
+
+def tiled_probe3_ref(a1_keys: torch.Tensor, a2_keys: torch.Tensor,
+                     b_keys: torch.Tensor, c_keys: torch.Tensor):
+    """The fused three-way probe: ``out1[r, i]`` is the first j < nb with
+    ``b_keys[r, j] == a1_keys[r, i]``, ``out2[r, i]`` the first k < nc with
+    ``c_keys[r, k] == a2_keys[r, i]``, else -1.
+
+    a1_keys, a2_keys: (B, na), b_keys: (B, nb), c_keys: (B, nc), all int32
+    -> two int32 (B, na)."""
+    return tiled_probe_ref(a1_keys, b_keys), tiled_probe_ref(a2_keys, c_keys)
 
 
 def bitonic_sort_ref(keys: torch.Tensor, values: torch.Tensor):

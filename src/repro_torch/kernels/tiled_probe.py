@@ -1,10 +1,17 @@
-"""tiled_probe — batched first-match probe of the hash-family joins.
+"""tiled_probe — batched first-match probes of the hash-family joins and of
+the hypercube multi-way join.
 
-out[r, i] = min{j : b_keys[r, j] == a_keys[r, i]}, else -1. Callers encode
-invalid rows with distinct negative sentinels (probe -1, build -2) so they
-never match. One call covers every (partition, radix bucket) pair of a hash
-join: on a CUDA tensor it launches ``csrc/tiled_probe.cu`` once; on a CPU
-tensor it runs the plain version in ``ref.py``.
+``tiled_probe``: out[r, i] = min{j : b_keys[r, j] == a_keys[r, i]}, else -1.
+Callers encode invalid rows with distinct negative sentinels (probe -1,
+build -2) so they never match. One call covers every (partition, radix
+bucket) pair of a hash join: on a CUDA tensor it launches
+``csrc/tiled_probe.cu`` once; on a CPU tensor it runs the plain version in
+``ref.py``.
+
+``tiled_probe3``: the same first-match probe of two probe key columns
+against two builds of their own lengths, in one pass (the hypercube's
+three-way local join). On a CUDA tensor it launches ``csrc/tiled_probe3.cu``
+once for every partition; on a CPU tensor it runs the plain version.
 """
 
 from __future__ import annotations
@@ -15,7 +22,7 @@ from . import ref
 from .build import check, library
 from .launch import cuda_stream, require_kernel_input
 
-#: Probe slots per block in the CUDA kernel; the grid's second axis counts
+#: Probe slots per block in the CUDA kernels; the grid's second axis counts
 #: probe tiles and holds at most 65535 of them.
 PROBE_TILE = 256
 MAX_PROBE_TILES = 65535
@@ -55,3 +62,52 @@ def tiled_probe(a_keys: torch.Tensor, b_keys: torch.Tensor) -> torch.Tensor:
 
 
 tiled_probe.launches = 0  # type: ignore[attr-defined]
+
+
+def tiled_probe3(a1_keys: torch.Tensor, a2_keys: torch.Tensor,
+                 b_keys: torch.Tensor, c_keys: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused first-match probe: a1_keys, a2_keys (B, na) against b_keys
+    (B, nb) and c_keys (B, nc) -> two int32 (B, na).
+
+    1-D inputs are one batch row and give 1-D results."""
+    keys = (a1_keys, a2_keys, b_keys, c_keys)
+    if any(k.dtype != torch.int32 for k in keys):
+        raise TypeError("tiled_probe3 expects int32 keys")
+    if len({k.dim() for k in keys}) != 1 or a1_keys.dim() not in (1, 2):
+        raise ValueError("tiled_probe3 expects four 1-D or four 2-D key "
+                         "tensors")
+    if a1_keys.shape != a2_keys.shape:
+        raise ValueError(f"probe columns differ in shape: "
+                         f"{tuple(a1_keys.shape)} and {tuple(a2_keys.shape)}")
+    if a1_keys.dim() == 1:
+        out1, out2 = tiled_probe3(*(k[None] for k in keys))
+        return out1[0], out2[0]
+    bsz, na = a1_keys.shape
+    if b_keys.shape[0] != bsz or c_keys.shape[0] != bsz:
+        raise ValueError(f"batch mismatch: {bsz} probe rows, "
+                         f"{b_keys.shape[0]} and {c_keys.shape[0]} build "
+                         "rows")
+    if all(k.device.type == "cpu" for k in keys):
+        return ref.tiled_probe3_ref(*keys)
+    require_kernel_input("tiled_probe3", *keys)
+    nb, nc = b_keys.shape[1], c_keys.shape[1]
+    if -(-na // PROBE_TILE) > MAX_PROBE_TILES:
+        raise ValueError(f"tiled_probe3: {na} probe slots per row exceed "
+                         f"{PROBE_TILE * MAX_PROBE_TILES}")
+    out1 = torch.full((bsz, na), -1, dtype=torch.int32,
+                      device=a1_keys.device)
+    out2 = torch.full_like(out1, -1)
+    if bsz == 0 or na == 0 or (nb == 0 and nc == 0):
+        return out1, out2
+    with cuda_stream(a1_keys) as stream:
+        err = library().repro_tiled_probe3(
+            a1_keys.data_ptr(), a2_keys.data_ptr(), b_keys.data_ptr(),
+            c_keys.data_ptr(), bsz, na, nb, nc, out1.data_ptr(),
+            out2.data_ptr(), stream)
+    check(err, "tiled_probe3")
+    tiled_probe3.launches += 1
+    return out1, out2
+
+
+tiled_probe3.launches = 0  # type: ignore[attr-defined]

@@ -14,10 +14,17 @@ perturbed by ``est_error`` to emulate stale catalogs).
 Runtime filters (``FilteredStrategy``): a filter per join-graph edge is
 planned with measured build-side statistics and applied to the probe side
 below its exchanges; inner-join regions of three or more leaves are
-evaluated leaf-first for that, then joined in their written order.
+evaluated leaf-first for that.
 
-Join reordering, skew measurement, plan verification, re-optimization and
-shared intermediates come with later slices of the port and raise
+Join reordering (``ReorderingStrategy``): the plan is rewritten by predicate
+pushdown and projection pruning, every inner-join region of three or more
+leaves is ordered by the System-R DP on its leaves' measured statistics and
+re-planned at every exchange boundary, and a cyclic region (closing
+``eqcol`` filters above it) is quoted as one hypercube multi-way shuffle
+against the best binary tree.
+
+Skew measurement, plan verification, checkpoint re-optimization and shared
+intermediates come with later slices of the port and raise
 ``NotImplementedError`` here.
 """
 
@@ -36,14 +43,19 @@ from ..core.selection import JoinProperties, JoinType, Selection
 from ..core.stats import (StatsSource, TableStats, estimate_filter,
                           estimate_group_by, estimate_join, q_error)
 from ..joins.aggregate import group_aggregate
-from ..joins.methods import JoinReport, run_equi_join
+from ..joins.methods import (HypercubeLink, HypercubeSpec, JoinReport,
+                             hypercube_multiway_join, run_equi_join)
 from ..joins.table import Table, compact_partitions
 from .datagen import Catalog
 from .logical import (Aggregate, Filter, Join, JoinEdge, Node, Project,
-                      RuntimeFilter, Scan, augment_edges, extract_join_graph,
-                      key_retain_fraction)
-from .planner import (catalog_base_stats, catalog_schema, leaf_key_domain,
-                      plan_runtime_filters, semi_match_fraction,
+                      RuntimeFilter, Scan, augment_edges,
+                      effective_selectivity, extract_join_graph,
+                      key_retain_fraction, leaf_columns)
+from .planner import (JoinStep, catalog_base_stats, catalog_schema,
+                      enumerate_join_order, leaf_key_domain,
+                      modeled_tree_cost, plan_hypercube,
+                      plan_runtime_filters, prune_projections,
+                      push_down_filters, semi_match_fraction,
                       stats_retain_fraction)
 from .runtime_filters import (DEFAULT_FILTER_KINDS, build_filter_payload,
                               chain_stats_key, filter_cache_key,
@@ -52,8 +64,8 @@ from .selectivity import derive_selectivity
 from .strategies import Strategy
 
 #: Executor features of later slices: (strategy flag, slice that brings it).
-_LATER_SLICES = (("reorder", "reordering"), ("skew_aware", "skew"),
-                 ("verify", "plan-verification"), ("reopt", "re-optimization"))
+_LATER_SLICES = (("skew_aware", "skew"), ("verify", "plan-verification"),
+                 ("reopt", "re-optimization"))
 
 #: Shuffle-family methods: both sides cross the wire, so a probe-side
 #: runtime filter reduces their exchange bytes (broadcast ships B only).
@@ -242,9 +254,10 @@ class Executor:
                  capacity_factor: float = 2.0, compact: bool = True,
                  reorder: Optional[bool] = None,
                  verify: Optional[bool] = None,
+                 hypercube: bool = True,
                  intermediates: Optional[Dict[str, Table]] = None,
                  reopt: Optional[bool] = None):
-        asked = {"reorder": reorder, "verify": verify, "reopt": reopt}
+        asked = {"verify": verify, "reopt": reopt}
         for flag, later in _LATER_SLICES:
             if asked.get(flag) or getattr(strategy, flag, False):
                 raise NotImplementedError(
@@ -263,6 +276,16 @@ class Executor:
         self.capacity_factor = capacity_factor
         self.compact = compact
         self.p = catalog.p
+        # Plan-space search: wrap any strategy in ReorderingStrategy (or pass
+        # reorder=True) to enable pushdown/pruning + adaptive join reordering.
+        self.reorder = (getattr(strategy, "reorder", False)
+                        if reorder is None else reorder)
+        # Hypercube multi-way execution for cyclic regions (eqcol closing
+        # predicates above a reorderable region). Armed whenever reordering
+        # is — the selection itself stays cost-gated, so acyclic plans and
+        # losing quotes are untouched. ``hypercube=False`` forces the
+        # binary plan (the comparison arm).
+        self.hypercube = hypercube
         # Runtime-filter pushdown (FilteredStrategy): a filter (cheapest
         # applicable kind) per join-graph edge, planned with *measured*
         # build-side statistics and applied to the probe side below its
@@ -291,6 +314,9 @@ class Executor:
             # Bind the cache to this catalog: entries built against any
             # other catalog are invalidated before planning.
             self.filter_cache.sync(self.catalog)
+        if self.reorder:
+            plan = prune_projections(
+                push_down_filters(plan, self._schema), self._schema)
         t0 = time.perf_counter()
         ann = self._eval(plan)
         if self.device.type == "cuda":
@@ -317,6 +343,12 @@ class Executor:
             return _Annotated(t, measured, est)
 
         if isinstance(node, Filter):
+            if node.op == "eqcol" and self.reorder and self.hypercube:
+                # Closing edge(s) of a possibly-cyclic region: quote the
+                # hypercube multi-way shuffle against the best binary tree.
+                ann = self._try_hypercube(node)
+                if ann is not None:
+                    return ann
             child = self._eval(node.child)
             t = _apply_filter(child.table, node)
             # In-stage operator: runtime stats are *propagated estimates*
@@ -340,9 +372,10 @@ class Executor:
                 TableStats(e.size_bytes * frac, e.cardinality, e.source))
 
         if isinstance(node, Join):
-            if self.runtime_filters:
-                # Leaf-level filter application is what pushes a filter
-                # below the probe side's earlier exchanges.
+            if self.reorder or self.runtime_filters:
+                # Regions are extracted for reordering AND for runtime
+                # filters: leaf-level filter application is what pushes a
+                # filter below the probe side's earlier exchanges.
                 graph = extract_join_graph(node, self._schema)
                 if graph is not None and graph.n >= 3:
                     return self._eval_region(graph)
@@ -535,20 +568,88 @@ class Executor:
             table = compact_partitions(table)
         return _Annotated(table, table.measure(), ann.estimated)
 
+    # -- adaptive join reordering (planner DP at exchange boundaries) ----------
+
     def _eval_region(self, graph) -> _Annotated:
-        """Execute an inner-join region of three or more leaves with runtime
-        filters: every leaf is materialized first (its adaptive runtime
-        statistics), filters built from selective build leaves mask the
-        probe leaves before any of the region's exchanges, and the region
-        then runs in its written join order on the post-filter
-        statistics."""
+        """Execute an inner-join region of three or more leaves.
+
+        All region leaves are materialized first (they are needed under any
+        order), giving their adaptive runtime statistics; with runtime
+        filters, filters built from selective build leaves then mask the
+        probe leaves before any of the region's exchanges. Without
+        reordering the region runs in its written order. With it, the
+        System-R DP enumerates the order on the (post-filter) statistics;
+        after every executed join — an exchange boundary — the *remaining*
+        order is re-enumerated with the measured intermediate statistics,
+        not just the next method re-selected. The written order is kept
+        whenever the DP cannot model a strictly cheaper one.
+        """
         anns = [self._eval(leaf) for leaf in graph.leaves]
         stats = [self._boundary_stats(a, l)
                  for a, l in zip(anns, graph.leaves)]
         retain = [self._retain(l) for l in graph.leaves]
-        anns, stats = self._region_filters(graph, anns, stats,
-                                           augment_edges(graph))
-        return self._exec_region_tree(graph.tree, graph, anns, retain)
+        edges = augment_edges(graph)
+        if self.runtime_filters:
+            anns, stats = self._region_filters(graph, anns, stats, edges)
+        if not self.reorder:
+            # Filter-only strategies keep the written join order.
+            return self._exec_region_tree(graph.tree, graph, anns, retain)
+        plan_cost = modeled_tree_cost(graph, stats, retain, self._params)
+        order = enumerate_join_order(stats, retain, edges, self._params)
+        if order is None or order.cost >= plan_cost * (1 - 1e-9):
+            return self._exec_region_tree(graph.tree, graph, anns, retain)
+        fallback = [s.build for s in order.steps]
+        cur = anns[order.first]
+        cur_stats = stats[order.first]
+        joined = {order.first}
+        while len(joined) < graph.n:
+            rest = [i for i in range(graph.n) if i not in joined]
+            step = self._replan_step(cur_stats, joined, rest, stats, retain,
+                                     edges)
+            if step is None:
+                step = self._fallback_step(fallback, joined, edges)
+            b = step.build
+            cur = self._join(cur, anns[b], cur_stats, stats[b],
+                             step.probe_key, step.build_key, JoinType.INNER,
+                             None, retain=retain[b])
+            joined.add(b)
+            cur_stats = cur.measured if self.adaptive else cur.estimated
+        return cur
+
+    def _replan_step(self, cur_stats, joined, rest, stats, retain, edges):
+        """Re-enumerate the remaining join order from the current
+        intermediate (pseudo-leaf 0); return its first step."""
+        idx = {r: i + 1 for i, r in enumerate(rest)}
+        pstats = [cur_stats] + [stats[r] for r in rest]
+        pretain = [1.0] + [retain[r] for r in rest]
+        pedges = []
+        for e in edges:
+            if e.build in joined:
+                continue
+            if e.probe in joined:
+                pedges.append(JoinEdge(0, idx[e.build], e.probe_key,
+                                       e.build_key, e.derived))
+            else:
+                pedges.append(JoinEdge(idx[e.probe], idx[e.build],
+                                       e.probe_key, e.build_key, e.derived))
+        order = enumerate_join_order(pstats, pretain, pedges, self._params,
+                                     start=0)
+        if order is None or not order.steps:
+            return None
+        s = order.steps[0]
+        return JoinStep(rest[s.build - 1], s.probe_key, s.build_key,
+                        s.method, s.cost)
+
+    def _fallback_step(self, fallback, joined, edges):
+        """Next feasible step of the DP's static order: the first live
+        join-graph edge of its next unjoined build leaf."""
+        for b in fallback:
+            if b in joined:
+                continue
+            for ed in edges:
+                if ed.build == b and ed.probe in joined:
+                    return JoinStep(b, ed.probe_key, ed.build_key, None, 0.0)
+        raise RuntimeError("no feasible join step left in region")
 
     def _exec_region_tree(self, tree, graph, anns,
                           retain: List[float]) -> _Annotated:
@@ -568,6 +669,86 @@ class Executor:
         if isinstance(tree, int):
             return self._boundary_stats(ann, graph.leaves[tree])
         return ann.measured if self.adaptive else ann.estimated
+
+    # -- hypercube multi-way execution (cyclic join cores) ---------------------
+
+    def _try_hypercube(self, node: Filter) -> Optional[_Annotated]:
+        """Quote + execute the hypercube multi-way shuffle for a cyclic
+        region: one-or-more consecutive eqcol Filters (the closing edges)
+        sitting directly above a reorderable INNER region. Returns None
+        whenever the shape does not match or the multi-way quote is not
+        strictly cheaper than the best binary tree — the caller then falls
+        through to the binary path, which evaluates the same eqcol
+        predicates as post-join residuals (identical semantics)."""
+        eqcols: List[Filter] = []
+        base: Node = node
+        while isinstance(base, Filter) and base.op == "eqcol":
+            eqcols.append(base)
+            base = base.child
+        graph = extract_join_graph(base, self._schema)
+        if graph is None or graph.n < 3:
+            return None
+        cols = [frozenset(leaf_columns(leaf, self._schema))
+                for leaf in graph.leaves]
+
+        def owner(col):
+            found = [i for i in range(graph.n) if col in cols[i]]
+            return found[0] if len(found) == 1 else None
+
+        closing = []
+        for f in eqcols:
+            u, v = owner(f.column), owner(str(f.column2))
+            if u is None or v is None or u == v:
+                return None
+            closing.append(((u, f.column), (v, str(f.column2))))
+        # Materialize the region leaves (needed under either plan) for
+        # their adaptive runtime statistics; roll back the audit trail if
+        # the binary plan stands, since the caller re-evaluates them.
+        n_dec, n_fil = len(self._decisions), len(self._filters)
+        anns = [self._eval(leaf) for leaf in graph.leaves]
+        stats = [self._boundary_stats(a, leaf)
+                 for a, leaf in zip(anns, graph.leaves)]
+        retain = [self._retain(leaf) for leaf in graph.leaves]
+        binary = modeled_tree_cost(graph, stats, retain, self._params)
+        order = enumerate_join_order(stats, retain, augment_edges(graph),
+                                     self._params)
+        if order is not None:
+            binary = min(binary, order.cost)
+        hp = plan_hypercube(graph, closing, stats, binary, self._params)
+        if hp is None:
+            del self._decisions[n_dec:]
+            del self._filters[n_fil:]
+            return None
+        spec = HypercubeSpec(
+            dims=hp.dims, axis_keys=hp.axis_keys,
+            links=tuple(HypercubeLink(*lk) for lk in hp.links),
+            checks=hp.checks)
+        tables = tuple(anns[i].table for i in hp.order)
+        out, rep = self._run_hypercube_with_retry(tables, spec)
+        if self.compact:
+            out = compact_partitions(out)
+        probe = hp.order[0]
+        build = max(hp.order[1:], key=lambda i: stats[i].size_bytes)
+        self._decisions.append(JoinDecision(hp.selection, stats[probe],
+                                            stats[build], rep,
+                                            props=JoinProperties()))
+        est = anns[probe].estimated
+        for i in hp.order[1:]:
+            est = estimate_join(est, anns[i].estimated)
+        for f in eqcols:
+            est = est.scaled(effective_selectivity(f))
+        return _Annotated(out, out.measure(), est)
+
+    def _run_hypercube_with_retry(self, tables, spec):
+        factor = self.capacity_factor
+        for _ in range(self.MAX_CAPACITY_RETRIES):
+            out, rep = hypercube_multiway_join(tables, spec,
+                                               capacity_factor=factor,
+                                               use_kernel=self.use_kernel)
+            if all(e.overflow_rows == 0 for e in rep.exchanges):
+                return out, rep
+            factor *= 2
+        raise RuntimeError("hypercube overflow persisted after retries")
 
     # -- join execution --------------------------------------------------------
 

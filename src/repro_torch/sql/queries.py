@@ -1,10 +1,12 @@
 """TPC-DS-shaped query suites as hand-built logical plans: the baseline
-q1-q12 and the runtime-filter targets q19-q23.
+q1-q12, the mis-ordered planner targets q13-q15, the runtime-filter targets
+q19-q23 and the cyclic hypercube targets q35-q37.
 
-Their structural signatures equal those of the JAX package's SQL texts for
-the same queries (the reference pins ``signature(parse_sql(text)) ==
-signature(hand_built())``). The SQL text front end, and the planner-target,
-skew and cyclic suites, come with later slices of the port.
+Their structural signatures equal those of the JAX package's plans for the
+same queries: its SQL texts for q1-q23 (the reference pins
+``signature(parse_sql(text)) == signature(hand_built())``), its hand-built
+plans for q35-q37, whose closing edges have no SQL form. The SQL text front
+end and the skew suite come with later slices of the port.
 
 The suite covers the decision space the paper evaluates:
 
@@ -138,6 +140,47 @@ def q12_anti() -> Node:
 
 
 # ---------------------------------------------------------------------------
+# Mis-ordered queries (join-reordering targets): each is written in an order
+# the System-R DP improves on.
+# ---------------------------------------------------------------------------
+
+
+def q13_fact_fact_first() -> Node:
+    """Fact x aggregated-fact runs BEFORE the selective dim filters.
+
+    Optimal order joins the 10%-filtered item (then the 1/12 date window)
+    first, shrinking the probe side ~120x before the expensive
+    fact-aggregate join."""
+    cs_by_item = Aggregate(_cs(), "cs_item_sk", (("cs_sales_price", "sum"),))
+    j = Join(_ss(), cs_by_item, "ss_item_sk", "cs_item_sk")
+    j = Join(j, Filter(Scan("item"), "i_category", "lt", 1, selectivity=0.1),
+             "ss_item_sk", "i_item_sk")
+    j = Join(j, Filter(Scan("date_dim"), "d_month", "eq", 3,
+                       selectivity=1 / 12), "ss_sold_date_sk", "d_date_sk")
+    return Aggregate(j, "i_brand", (("ss_sales_price", "sum"),))
+
+
+def q14_big_dim_first() -> Node:
+    """The shuffle-heavy customer join (k < k0) runs BEFORE the 1/12
+    date filter that would shrink the fact side it shuffles."""
+    j = Join(_ss(), Scan("customer"), "ss_customer_sk", "c_customer_sk")
+    j = Join(j, Scan("store"), "ss_store_sk", "s_store_sk")
+    j = Join(j, Filter(Scan("date_dim"), "d_month", "eq", 6,
+                       selectivity=1 / 12), "ss_sold_date_sk", "d_date_sk")
+    return Aggregate(j, "c_region", (("ss_net_profit", "sum"),))
+
+
+def q15_late_filter() -> Node:
+    """Mis-placed AND mis-ordered: the selective item predicate is written
+    above both joins. Pushdown sinks it to the item scan; reordering then
+    joins the slimmed item ahead of the expensive customer join."""
+    j = Join(_ss(), Scan("customer"), "ss_customer_sk", "c_customer_sk")
+    j = Join(j, Scan("item"), "ss_item_sk", "i_item_sk")
+    f = Filter(j, "i_category", "lt", 1, selectivity=0.1)
+    return Aggregate(f, "c_region", (("ss_sales_price", "sum"),))
+
+
+# ---------------------------------------------------------------------------
 # Filter-friendly queries (runtime bloom-filter targets): star shapes whose
 # selective dimension predicate makes the probe side mostly dead weight at
 # its shuffle — a bloom filter over the surviving dimension keys, applied
@@ -217,6 +260,74 @@ def q23_semi_join_stores() -> Node:
     return Aggregate(j, "c_region", (("ss_sales_price", "sum"),))
 
 
+# ---------------------------------------------------------------------------
+# Cyclic join cores (hypercube multi-way targets): the closing edge of each
+# cycle is a column-to-column equality between two *build-side* columns. The
+# binary engine evaluates it as a post-join eqcol residual; the hypercube
+# planner recognizes the cycle and quotes one multi-way shuffle against the
+# DP's best binary tree. Build sides are aggregates (unique group keys — the
+# engine's build contract) sized *relatively large* (> probe/k0), so the
+# binary plan pays real shuffles and re-ships its wide intermediate, which
+# is exactly the traffic the cube partitioning never creates.
+# ---------------------------------------------------------------------------
+
+
+def q35_triangle() -> Node:
+    """Triangle on fact tables: store_sales x (catalog_sales by customer) x
+    (inventory by item), closed on the item variable (the customer's
+    max catalog item must be this sale's item). The item axis spans all
+    three relations, so the best cube pure-hashes every relation —
+    replication-free — while the binary plan re-ships its wide
+    fact-sized intermediate at the second join."""
+    s = Aggregate(_cs(), "cs_bill_customer_sk", (("cs_item_sk", "max"),))
+    t = Aggregate(Scan("inventory"), "inv_item_sk",
+                  (("inv_warehouse_sk", "max"),
+                   ("inv_quantity_on_hand", "sum")))
+    j = Join(_ss(), s, "ss_customer_sk", "cs_bill_customer_sk")
+    j = Join(j, t, "ss_item_sk", "inv_item_sk")
+    f = Filter(j, "max_cs_item_sk", "eqcol", column2="inv_item_sk")
+    return Aggregate(f, "ss_store_sk", (("ss_sales_price", "sum"),))
+
+
+def q36_triangle_shared_axis() -> Node:
+    """The q35 rotation: catalog_sales probes (store_sales by customer) and
+    (inventory by item), closed on the item variable via store_sales'
+    max-item aggregate column. Same replication-free two-axis cube, with
+    the probe and both builds drawn from the other fact pairing."""
+    s = Aggregate(_ss(), "ss_customer_sk",
+                  (("ss_item_sk", "max"), ("ss_sales_price", "sum")))
+    t = Aggregate(Scan("inventory"), "inv_item_sk",
+                  (("inv_quantity_on_hand", "sum"),
+                   ("inv_warehouse_sk", "max")))
+    j = Join(_cs(), s, "cs_bill_customer_sk", "ss_customer_sk")
+    j = Join(j, t, "cs_item_sk", "inv_item_sk")
+    f = Filter(j, "max_ss_item_sk", "eqcol", column2="inv_item_sk")
+    return Aggregate(f, "cs_warehouse_sk", (("cs_sales_price", "sum"),))
+
+
+def q37_four_clique() -> Node:
+    """4-clique: every pair of relations shares a variable (customer, item,
+    date, warehouse). Three closing eqcol edges ride above the join tree;
+    the date variable spans all four relations, so the best cube
+    concentrates the whole budget on the date axis."""
+    r = _ss()
+    s = Aggregate(_cs(), "cs_bill_customer_sk",
+                  (("cs_warehouse_sk", "max"), ("cs_ship_date_sk", "max")))
+    t = Aggregate(Scan("inventory"), "inv_item_sk",
+                  (("inv_warehouse_sk", "max"), ("inv_date_sk", "max"),
+                   ("inv_quantity_on_hand", "sum")))
+    u = Aggregate(_cs(), "cs_ship_date_sk",
+                  (("cs_quantity", "count"), ("cs_sales_price", "sum")))
+    j = Join(r, s, "ss_customer_sk", "cs_bill_customer_sk")
+    j = Join(j, t, "ss_item_sk", "inv_item_sk")
+    j = Join(j, u, "ss_sold_date_sk", "cs_ship_date_sk")
+    f = Filter(j, "max_cs_warehouse_sk", "eqcol",
+               column2="max_inv_warehouse_sk")
+    f = Filter(f, "max_cs_ship_date_sk", "eqcol", column2="cs_ship_date_sk")
+    f = Filter(f, "max_inv_date_sk", "eqcol", column2="cs_ship_date_sk")
+    return Aggregate(f, "ss_store_sk", (("ss_net_profit", "sum"),))
+
+
 HAND_BUILT = {
     "q1_star3": q1_star3, "q2_chain7": q2_chain7,
     "q3_cross_channel": q3_cross_channel, "q4_agg_agg": q4_agg_agg,
@@ -227,12 +338,24 @@ HAND_BUILT = {
     "q12_anti": q12_anti,
 }
 
+MISORDERED = {
+    "q13_fact_fact_first": q13_fact_fact_first,
+    "q14_big_dim_first": q14_big_dim_first,
+    "q15_late_filter": q15_late_filter,
+}
+
 FILTERED = {
     "q19_filtered_customer": q19_filtered_customer,
     "q20_filter_below_earlier_exchange": q20_filter_below_earlier_exchange,
     "q21_catalog_filtered_dates": q21_catalog_filtered_dates,
     "q22_zone_map_window": q22_zone_map_window,
     "q23_semi_join_stores": q23_semi_join_stores,
+}
+
+CYCLIC = {
+    "q35_triangle": q35_triangle,
+    "q36_triangle_shared_axis": q36_triangle_shared_axis,
+    "q37_four_clique": q37_four_clique,
 }
 
 
@@ -245,3 +368,20 @@ def filtered_queries() -> Dict[str, Node]:
     """The runtime-filter targets q19-q23 (run them under
     ``FilteredStrategy``)."""
     return {name: build() for name, build in FILTERED.items()}
+
+
+def misordered_queries() -> Dict[str, Node]:
+    """The mis-ordered planner targets q13-q15 (run them under
+    ``ReorderingStrategy``)."""
+    return {name: build() for name, build in MISORDERED.items()}
+
+
+def cyclic_queries() -> Dict[str, Node]:
+    """The cyclic-core queries q35-q37 (the hypercube targets, under
+    ``ReorderingStrategy``)."""
+    return {name: build() for name, build in CYCLIC.items()}
+
+
+def every_query() -> Dict[str, Node]:
+    """The 12 baseline plans plus the 3 mis-ordered planner targets."""
+    return {**all_queries(), **misordered_queries()}

@@ -1,8 +1,7 @@
 """Join-method selection strategies evaluated in the paper (Table 3).
 
 The ``name`` strings are the JAX package's, so results key the same way.
-The skew-aware and reordering strategies come with later slices of the
-port.
+The skew-aware strategy comes with a later slice of the port.
 """
 
 from __future__ import annotations
@@ -70,6 +69,51 @@ class ForcedStrategy(Strategy):
 
 
 @dataclasses.dataclass
+class ReorderingStrategy(Strategy):
+    """Wrapper adding plan-space search to any baseline.
+
+    Method selection is delegated to the wrapped strategy unchanged; the
+    Executor, seeing ``reorder=True``, additionally runs predicate pushdown,
+    projection pruning, and the System-R DP join reordering (scored with the
+    RelJoin cost model at weight ``w``) with adaptive re-planning at every
+    exchange boundary, and quotes the hypercube multi-way join for cyclic
+    regions.
+    """
+
+    inner: Strategy = dataclasses.field(default_factory=lambda:
+                                        RelJoinStrategy())
+    #: Workload weight for the ordering DP; None inherits the wrapped
+    #: strategy's w (when it has one) so the DP optimizes the same
+    #: objective the per-join selections use.
+    w: float | None = None
+    #: Checkpoint mid-query re-optimization; the Executor refuses it until
+    #: the re-optimization slice of the port.
+    reopt: bool = False
+
+    def __post_init__(self):
+        self.name = f"Reorder({self.inner.name})"
+        if self.reopt:
+            self.name += "+reopt"
+        self.reorder = True
+        # Forward the wrapped strategy's executor-facing flags: without
+        # these, Reorder(Filtered(...)) would silently lose its runtime
+        # filters (and a wrapped strategy of a later slice its checks).
+        self.skew_aware = getattr(self.inner, "skew_aware", False)
+        self.runtime_filters = getattr(self.inner, "runtime_filters", False)
+        self.bits_per_key = getattr(self.inner, "bits_per_key",
+                                    BLOOM_DEFAULT_BITS_PER_KEY)
+        self.filter_kinds = getattr(self.inner, "filter_kinds",
+                                    DEFAULT_FILTER_KINDS)
+        self.filter_cache = getattr(self.inner, "filter_cache", None)
+        self.verify = getattr(self.inner, "verify", False)
+        if self.w is None:
+            self.w = getattr(self.inner, "w", 1.0)
+
+    def select(self, left, right, props, p):
+        return self.inner.select(left, right, props, p)
+
+
+@dataclasses.dataclass
 class FilteredStrategy(Strategy):
     """Wrapper adding runtime-filter pushdown to any baseline.
 
@@ -106,8 +150,9 @@ class FilteredStrategy(Strategy):
         self.runtime_filters = True
         self.filter_kinds = tuple(self.kinds)
         self.filter_cache = self.cache
-        # Forward the wrapped strategy's executor-facing flags, so that a
-        # wrapped strategy of a later slice reaches the executor's checks.
+        # Forward the wrapped strategy's executor-facing flags so
+        # Filtered(Reorder(...)) composes, and a wrapped strategy of a later
+        # slice reaches the executor's checks.
         self.reorder = getattr(self.inner, "reorder", False)
         self.skew_aware = getattr(self.inner, "skew_aware", False)
         self.verify = getattr(self.inner, "verify", False)

@@ -1,6 +1,6 @@
 """The port on an NVIDIA card: each CUDA kernel against its plain version,
-and the main path and the runtime-filter path on the card against the same
-paths on the CPU.
+and the main path, the runtime-filter path and the reordering and hypercube
+path on the card against the same paths on the CPU.
 
 Every test here is marked ``cuda`` and skips without a card. The file
 imports neither JAX nor the JAX package, and uses no fixture of
@@ -18,7 +18,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.bitonic_sort import bitonic_sort_tile
 from repro_torch.kernels.bloom import bloom_build, bloom_probe
 from repro_torch.kernels.partition_hist import partition_hist
-from repro_torch.kernels.tiled_probe import tiled_probe
+from repro_torch.kernels.tiled_probe import tiled_probe, tiled_probe3
 from repro_torch.kernels.zone_map import key_range
 
 pytestmark = pytest.mark.cuda
@@ -52,6 +52,24 @@ def test_probe_equals_plain(cuda, bsz, na, nb):
     a = on(cuda, rng.integers(-1, nb // 2 + 2, (bsz, na)).astype(np.int32))
     b = on(cuda, rng.integers(-2, nb // 2 + 2, (bsz, nb)).astype(np.int32))
     assert torch.equal(tiled_probe(a, b), ref.tiled_probe_ref(a, b))
+
+
+@pytest.mark.parametrize("bsz,na,nb,nc", [(1, 1, 1, 1), (1, 255, 0, 7),
+                                          (8, 257, 1, 0), (8, 256, 700, 5),
+                                          (3, 70_000, 4700, 1300)])
+def test_probe3_equals_plain(cuda, bsz, na, nb, nc):
+    rng = np.random.default_rng(na + nb + nc)
+    hi = max(nb, nc) // 2 + 2
+    keys = [rng.integers(-2, hi, shape).astype(np.int32)
+            for shape in ((bsz, na), (bsz, na), (bsz, nb), (bsz, nc))]
+    for k in keys:  # the sentinels and the ends of the int32 range
+        k.reshape(-1)[:4] = [-1, -2, -(2 ** 31), 2 ** 31 - 1][:k.size]
+    a1, a2, b, c = (on(cuda, k) for k in keys)
+    before = ops.launch_counts()["tiled_probe3"]
+    got = tiled_probe3(a1, a2, b, c)
+    want = ref.tiled_probe3_ref(a1, a2, b, c)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert ops.launch_counts()["tiled_probe3"] == before + 1
 
 
 @pytest.mark.parametrize("logn", range(0, 13))
@@ -144,3 +162,22 @@ def test_filtered_path_on_the_card_equals_the_cpu(cuda):
     counts = ops.launch_counts()
     for kernel in ("bloom_build", "bloom_probe", "key_range"):
         assert counts[kernel] > 0, kernel
+
+
+def test_reorder_and_hypercube_path_on_the_card_equals_the_cpu(cuda):
+    from repro_torch.sql import (Executor, RelJoinStrategy,
+                                 ReorderingStrategy, cyclic_queries, generate,
+                                 misordered_queries)
+    on_card = generate(0.1, 4, 42)
+    on_cpu = generate(0.1, 4, 42, device="cpu")
+    strat = ReorderingStrategy(RelJoinStrategy())
+    ops.reset_launch_counts()
+    for name, plan in {**misordered_queries(), **cyclic_queries()}.items():
+        got = Executor(on_card, strat).execute(plan)
+        want = Executor(on_cpu, strat).execute(plan)
+        assert got.methods() == want.methods(), name
+        assert got.network_bytes == want.network_bytes, name
+        assert rows_close(rows_as_set(got.table.to_numpy()),
+                          rows_as_set(want.table.to_numpy())), name
+    # q35 and q36 take the fused branch: two links on the probe shard.
+    assert ops.launch_counts()["tiled_probe3"] >= 2

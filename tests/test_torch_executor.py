@@ -100,7 +100,7 @@ def test_execution_equals_reference(catalog, port_catalog, query, strategy):
                       rows_as_set(want.table.to_numpy()))
 
 
-@pytest.mark.parametrize("flag", ["reorder", "verify", "reopt"])
+@pytest.mark.parametrize("flag", ["verify", "reopt"])
 def test_later_slice_options_raise(port_catalog, flag):
     with pytest.raises(NotImplementedError):
         Executor(port_catalog, RelJoinStrategy(), **{flag: True})
@@ -108,6 +108,19 @@ def test_later_slice_options_raise(port_catalog, flag):
     setattr(strat, flag, True)
     with pytest.raises(NotImplementedError):
         Executor(port_catalog, strat)
+
+
+def test_reorder_option_runs(port_catalog):
+    """``reorder=True`` (the reordering slice) runs: pushdown, pruning and
+    the DP on q1, with the rows of the written order."""
+    plan = all_queries()["q1_star3"]
+    got = Executor(port_catalog, RelJoinStrategy(), reorder=True)
+    assert got.reorder and got.hypercube
+    res, base = (got.execute(plan),
+                 Executor(port_catalog, RelJoinStrategy()).execute(plan))
+    assert res.rows == base.rows
+    assert rows_close(rows_as_set(res.table.to_numpy()),
+                      rows_as_set(base.table.to_numpy()))
 
 
 def test_shared_intermediates_raise(port_catalog):

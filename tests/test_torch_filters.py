@@ -42,8 +42,9 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.bloom import bloom_build, bloom_probe
 from repro_torch.kernels.zone_map import key_range, merge_ranges, range_probe
 from repro_torch.sql import (Catalog, Executor, FilterCache, FilteredStrategy,
-                             default_strategies, filtered_queries, generate,
-                             payload_from_numpy, signature)
+                             ReorderingStrategy, default_strategies,
+                             filtered_queries, generate, payload_from_numpy,
+                             signature)
 from repro_torch.sql import logical as tl
 from repro_torch.sql import runtime_filters as t_rf
 from repro_torch.sql.planner import plan_runtime_filters
@@ -568,13 +569,22 @@ def test_warm_cache_reuses_every_filter(port_catalog):
     assert cache.invalidations == 1
 
 
-@pytest.mark.parametrize("flag", ["reorder", "skew_aware", "verify", "reopt"])
+@pytest.mark.parametrize("flag", ["skew_aware", "verify", "reopt"])
 def test_later_slice_flags_raise_through_filtered_strategy(port_catalog,
                                                            flag):
     inner = default_strategies()[-1]
     setattr(inner, flag, True)
     strat = FilteredStrategy(inner)
     assert getattr(strat, flag) is True
+    with pytest.raises(NotImplementedError):
+        Executor(port_catalog, strat)
+
+
+def test_reopt_raises_through_filtered_reordering_strategy(port_catalog):
+    """Reordering runs (the reordering slice); its checkpoint
+    re-optimization still waits for a later one."""
+    strat = FilteredStrategy(ReorderingStrategy(reopt=True))
+    assert strat.reorder is True and strat.reopt is True
     with pytest.raises(NotImplementedError):
         Executor(port_catalog, strat)
 

@@ -76,7 +76,7 @@ def test_kernel_wrappers_never_fall_back_off_the_cpu():
     from repro_torch.kernels.bitonic_sort import bitonic_sort_tile
     from repro_torch.kernels.bloom import bloom_build, bloom_probe
     from repro_torch.kernels.partition_hist import partition_hist
-    from repro_torch.kernels.tiled_probe import tiled_probe
+    from repro_torch.kernels.tiled_probe import tiled_probe, tiled_probe3
     from repro_torch.kernels.zone_map import key_range
     meta = torch.zeros(2, 8, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="expected cuda"):
@@ -91,13 +91,16 @@ def test_kernel_wrappers_never_fall_back_off_the_cpu():
         bloom_probe(meta, meta[0], k=2)
     with pytest.raises(ValueError, match="expected cuda"):
         key_range(meta)
+    with pytest.raises(ValueError, match="expected cuda"):
+        tiled_probe3(meta, meta, meta, meta)
 
 
 def test_kernel_sources_export_every_declared_entry_point():
     from repro_torch.kernels import build
     names = {s.name for s in build.sources()}
     assert names == {"partition_hist.cu", "tiled_probe.cu",
-                     "bitonic_sort.cu", "bloom.cu", "zone_map.cu"}
+                     "bitonic_sort.cu", "bloom.cu", "zone_map.cu",
+                     "tiled_probe3.cu"}
     text = "".join(s.read_text() for s in build.sources())
     for entry in (*build.SIGNATURES, "repro_error_string"):
         assert f" {entry}(" in text

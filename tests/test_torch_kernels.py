@@ -222,6 +222,9 @@ def test_plain_versions_do_not_count_launches():
                             k=2)
     ops.bloom_probe(torch.zeros(8, dtype=torch.int32), words, k=2)
     ops.key_range(torch.zeros(8, dtype=torch.int32))
+    z = torch.zeros(2, 8, dtype=torch.int32)
+    ops.probe3(z, z, z, z)
     assert ops.launch_counts() == {"partition_hist": 0, "tiled_probe": 0,
                                    "bitonic_sort_tile": 0, "bloom_build": 0,
-                                   "bloom_probe": 0, "key_range": 0}
+                                   "bloom_probe": 0, "key_range": 0,
+                                   "tiled_probe3": 0}
