@@ -9,7 +9,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. environment: the card's name and power limit, torch, CUDA and nvcc;
 2. build: ``nvcc`` compiles ``src/repro_torch/csrc/*.cu`` for sm_90a;
 3. kernels against their plain versions on the card, on edge cases (the
-   filter kernels bit for bit);
+   filter kernels bit for bit; the two probes also on the inputs that are
+   hard for their first-match tables: keys sharing one hash32 residue,
+   all-equal builds, the int32 ends and sentinels, and builds too large
+   for shared memory, so that both table branches launch);
 4. the main path: q1-q12 under the four default strategies on
    ``generate(scale, p=8, seed=0)`` on the card: one warm-up pass, then the
    reported pass, with every launch count set to 0 just before and read
@@ -18,8 +21,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``torch.profiler`` for the device's busy share and its kernels by time.
    The largest input each kernel saw is kept, and each kernel, its plain
    version and one PyTorch call for the same function are timed on it
-   with CUDA events (the kernel also by its device time alone, from the
-   profiler);
+   with CUDA events (the kernel also by its device time alone, from events
+   around each call queued behind a sleep kernel);
 5. runtime filters on the same catalog: q19-q23 under
    ``FilteredStrategy(s)`` for each default strategy, after a warm-up pass
    and beside the unfiltered runs: the same rows, the planned filter kinds,
@@ -110,30 +113,72 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int) -> float:
-    """Mean milliseconds of device activity (kernels, memsets, copies) that
-    one call of ``fn`` puts on the card, from ``torch.profiler``: the
-    kernel's own time, without the host's launch cost between calls."""
+def device_ms(fn, reps: int, flush=None) -> float:
+    """Mean milliseconds that one call of ``fn`` keeps the card busy: CUDA
+    events recorded just before and just after each call, with all the
+    calls queued behind a sleep kernel, so that the host's launch cost
+    between calls passes during the sleep and not between the events.
+    ``flush``, if given, runs before each call, outside its events. (The
+    profiler's kernel records proved unreliable over short back-to-back
+    sessions: some calls came back with no device time.)"""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
+    cycles = 20_000_000  # about 10 ms at the card's clock
+    for _ in range(6):
+        events = [(torch.cuda.Event(enable_timing=True),
+                   torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+        head = torch.cuda.Event()
+        torch.cuda._sleep(cycles)
+        head.record()
+        for start, end in events:
+            if flush is not None:
+                flush()
+            start.record()
             fn()
+            end.record()
+        queued_in_time = not head.query()  # the sleep outlasted the host
         torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA)
-    return us / reps / 1e3
+        if queued_in_time:
+            return sum(s.elapsed_time(e) for s, e in events) / reps
+        cycles *= 4
+    raise CheckFailed("device_ms: the host could not queue the calls "
+                      "within the sleep")
 
 
-def time_kernel(fn, reps: int) -> dict:
+def l2_flush():
+    """A call that evicts the card's 50 MB L2 cache by reading 256 MB (a
+    read, so that no dirty line is left for the next kernel to write
+    back)."""
+    import torch
+    scratch = torch.ones(1 << 26, dtype=torch.int32, device="cuda")
+    return lambda: scratch.amax()
+
+
+def time_kernel(fn, reps: int, cold: bool = False) -> dict:
     """``ms``: CUDA events around ``reps`` back-to-back wrapper calls, host
     launch cost included where it outlasts the device work; ``device_ms``:
-    the device time alone."""
-    return dict(ms=cuda_ms(fn, reps), device_ms=device_ms(fn, reps))
+    the device time alone (``device_ms`` above), back to back, where a call
+    may find part of its inputs in L2 from the one before; with ``cold``,
+    also ``device_cold_ms``: the device time with L2 emptied before each
+    call, which every byte of the bound then crosses."""
+    out = dict(ms=cuda_ms(fn, reps), device_ms=device_ms(fn, reps))
+    if cold:
+        out["device_cold_ms"] = device_ms(fn, reps, flush=l2_flush())
+    return out
+
+
+def copy_yardstick(n: int) -> str:
+    """Device time of copying ``n`` int32 (read once, written once), back
+    to back and with L2 emptied: the rate this card reaches on a probe's
+    traffic, its probe keys in and its outputs out."""
+    import torch
+    src = torch.empty(n, dtype=torch.int32, device="cuda")
+    dst = torch.empty_like(src)
+    fn = lambda: dst.copy_(src)  # noqa: E731
+    return (f"a copy of the probe keys ({4 * n / 1e6:.1f} MB in, as many "
+            f"out) takes {device_ms(fn, 20):.4f} ms of device time, "
+            f"{device_ms(fn, 20, flush=l2_flush()):.4f} ms with L2 emptied")
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -142,6 +187,89 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def probe_least_work(probes, builds) -> tuple[float, float]:
+    """Least work of a first-match probe by the rule of the bound: every
+    probe and build key read once and every output (one per probe key)
+    written once, 4 bytes each; one hash and one compare per probe key and
+    per build key. Returns (bytes, operations)."""
+    n_probe = sum(t.numel() for t in probes)
+    n_build = sum(t.numel() for t in builds)
+    return 4.0 * (2 * n_probe + n_build), 2.0 * (n_probe + n_build)
+
+
+def dense_compares(first, n) -> float:
+    """Compares of a dense scan on these results: up to the first hit, all
+    ``n`` build keys on a miss."""
+    import torch
+    return float(torch.where(first >= 0, first + 1, n).sum())
+
+
+#: The probe edge cases that stress the first-match tables.
+PROBE_EDGE_KINDS = ("one residue", "all equal", "extremes")
+
+
+def residue_keys(rng, n: int, seed: int, modulus: int):
+    """``n`` distinct int32 keys that all share ``hash32(key, seed) %
+    modulus == 0``, as the keys of one radix bucket (BUCKET_SEED) or one
+    cube partition (SHUFFLE_SEED) do: half from a dense range near 0, as
+    surrogate keys are, half from the whole int32 range."""
+    import numpy as np
+    import torch
+
+    from repro_torch.joins.slots import hash32
+
+    def pick(lo, hi, want, taken=()):
+        out = np.empty(0, np.int64)
+        while out.size < want:
+            cand = rng.integers(lo, hi, 2 * modulus * want + 64)
+            h = hash32(torch.from_numpy(cand), seed).numpy()
+            out = np.setdiff1d(np.union1d(out, cand[h % modulus == 0]),
+                               taken)
+        return rng.permutation(out)[:want]
+
+    dense = pick(0, 8 * modulus * max(n, 1), n - n // 2)
+    wide = pick(-(2 ** 31), 2 ** 31, n // 2, dense)
+    return rng.permutation(np.concatenate([dense, wide])).astype(np.int32)
+
+
+def probe_edge_keys(rng, bsz: int, na: int, nb: int, seed: int,
+                    modulus: int, kind: str):
+    """Probe keys (bsz, na) and build keys (bsz, nb) of one edge case.
+
+    "one residue": every key of a row shares one hash32 residue; the build
+    repeats a tenth of its keys (first match matters) and holds build
+    padding (-2); three quarters of the probe slots are probe padding (-1),
+    the rest hit or miss the build about evenly. "all equal": one build key
+    throughout, probed with it (two in five live slots) and with others.
+    "extremes": the residue keys with INT32_MIN, INT32_MAX, -1 and -2 among
+    them on both sides, repeated in the build."""
+    import numpy as np
+
+    a = np.full((bsz, na), -1, np.int32)
+    b = np.full((bsz, nb), -2, np.int32)
+    ends = np.array([-(2 ** 31), 2 ** 31 - 1, -1, -2], np.int32)
+    for r in range(bsz):
+        pool = residue_keys(rng, 2 * nb + 8, seed, modulus)
+        if kind == "all equal":
+            b[r] = pool[0]
+        else:
+            brow = pool[:nb].copy()
+            dup = rng.random(nb) < 0.1
+            brow[dup] = brow[rng.integers(0, nb, int(dup.sum()))]
+            brow[rng.random(nb) < 0.25] = -2
+            if kind == "extremes":
+                at = rng.integers(0, nb, 4 * len(ends))
+                brow[at] = np.tile(ends, 4)
+            b[r] = brow
+        live = rng.random(na) < 0.25
+        a[r, live] = pool[rng.integers(0, 2 * nb + 8, int(live.sum()))]
+        if kind == "all equal":
+            a[r, live & (rng.random(na) < 0.4)] = pool[0]
+        if kind == "extremes":
+            a[r, rng.integers(0, na, 2 * len(ends))] = np.tile(ends, 2)
+    return a, b
 
 
 # ---------------------------------------------------------------------------
@@ -194,7 +322,22 @@ def check_kernels_edge_cases(dev) -> None:
         b = rng.integers(-2, hi, (bsz, nb)).astype(np.int32)
         probe_case(a, b, f"B={bsz} na={na} nb={nb}")
         n_cases += 1
-    print(f"  tiled_probe: {n_cases} cases equal to the plain version")
+    # The first-match tables' hard inputs: one radix bucket's keys (one
+    # BUCKET_SEED residue), all-equal builds, the int32 ends and sentinels,
+    # at the hash join's tile shape and past the shared-memory tables.
+    from repro_torch.joins.slots import BUCKET_SEED
+    branches = dict(tiled_probe.table_launches)
+    for bsz, na, nb in ((256, 2048, 129), (3, 70_000, 4700),
+                        (2, 20_000, 100_000)):
+        for kind in PROBE_EDGE_KINDS:
+            a, b = probe_edge_keys(rng, bsz, na, nb, BUCKET_SEED, 64, kind)
+            probe_case(a, b, f"{kind} B={bsz} na={na} nb={nb}")
+            n_cases += 1
+    took = {k: v - branches[k] for k, v in tiled_probe.table_launches.items()}
+    require(took["shared"] > 0 and took["device"] > 0,
+            f"tiled_probe table branches launched {took}")
+    print(f"  tiled_probe: {n_cases} cases equal to the plain version; "
+          f"table branches of the edge cases {took}")
 
     n_cases = 0
     n = 1
@@ -244,13 +387,32 @@ def check_probe3_edge_cases(dev) -> None:
                         and torch.equal(got[1], want[1]),
                         f"tiled_probe3 B={bsz} na={na} nb={nb} nc={nc}")
                 n_cases += 1
+    from repro_torch.joins.slots import SHUFFLE_SEED
+    branches = dict(tiled_probe3.table_launches)
+    for bsz, na, nb, nc in ((8, 70_000, 8768, 2368),
+                            (8, 20_000, 60_000, 30_000)):
+        for kind in PROBE_EDGE_KINDS:
+            a1, b = probe_edge_keys(rng, bsz, na, nb, SHUFFLE_SEED, 8, kind)
+            a2, c = probe_edge_keys(rng, bsz, na, nc, SHUFFLE_SEED, 8, kind)
+            a1, a2, b, c = (t(k) for k in (a1, a2, b, c))
+            got = tiled_probe3(a1, a2, b, c)
+            want = ref.tiled_probe3_ref(a1, a2, b, c)
+            require(torch.equal(got[0], want[0])
+                    and torch.equal(got[1], want[1]),
+                    f"tiled_probe3 {kind} B={bsz} na={na} nb={nb} nc={nc}")
+            n_cases += 1
+    took = {k: v - branches[k]
+            for k, v in tiled_probe3.table_launches.items()}
+    require(took["shared"] > 0 and took["device"] > 0,
+            f"tiled_probe3 table branches launched {took}")
     got = tiled_probe3(t(np.array([5, -1, 9, -2], np.int32)),
                        t(np.array([-1, 4, 4, 7], np.int32)),
                        t(np.array([1, 5, -1, 5, -2], np.int32)),
                        t(np.array([4, -1, 4], np.int32)))
     require([o.tolist() for o in got] == [[1, 2, -1, 4], [1, 0, 0, -1]],
             "tiled_probe3 sentinels and first-match values")
-    print(f"  tiled_probe3: {n_cases + 1} cases equal to the plain version")
+    print(f"  tiled_probe3: {n_cases + 1} cases equal to the plain version; "
+          f"table branches of the edge cases {took}")
 
 
 def check_filter_kernels_edge_cases(dev) -> None:
@@ -537,15 +699,18 @@ def measure_kernels(calls: dict, launches: dict) -> list:
     nb = b.shape[1]
     got, want = tiled_probe(a, b), ref.tiled_probe_ref(a, b)
     err = float((got - want).abs().max()) if got.numel() else 0.0
-    # Compares this data needs: up to the first hit, all nb on a miss.
-    compares = float(torch.where(want >= 0, want + 1, nb).sum())
-    b_ms, b_by = bound(4 * (2 * bsz * na + bsz * nb), compares)
+    b_ms, b_by = bound(*probe_least_work([a], [b]))
+    print(f"  tiled_probe input: {float((a != -1).float().mean()):.3f} of "
+          f"the probe slots hold a row; hit rate "
+          f"{float((want >= 0).float().mean()):.3f}; a dense scan would make "
+          f"{dense_compares(want, nb):.4g} compares; "
+          f"{copy_yardstick(a.numel())}")
     rows.append(dict(
         name="tiled_probe", route="cuda",
         source="src/repro_torch/csrc/tiled_probe.cu",
         replaces="src/repro/kernels/tiled_probe.py:72",
         launches=launches["tiled_probe"], max_abs_err=err,
-        **time_kernel(lambda: tiled_probe(a, b), 20),
+        **time_kernel(lambda: tiled_probe(a, b), 20, cold=True),
         plain_ms=cuda_ms(lambda: ref.tiled_probe_ref(a, b), 3),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         shape=f"B={bsz} na={na} nb={nb}"))
@@ -799,8 +964,11 @@ def report_kernels(rows: list) -> None:
                 f"plain version at {r['shape']}")
         lib = ("none (no single PyTorch call computes it)"
                if r["library_ms"] is None else f"{r['library_ms']:.4f} ms")
+        cold = (f", L2 emptied {r['device_cold_ms']:.4f} ms"
+                if "device_cold_ms" in r else "")
         print(f"  {r['name']:18s} {r['shape']:22s} kernel {r['ms']:.4f} ms "
-              f"(device {r['device_ms']:.4f} ms), bound {r['bound_ms']:.5f} "
+              f"(device {r['device_ms']:.4f} ms{cold}), bound "
+              f"{r['bound_ms']:.5f} "
               f"ms ({r['bound_by']}), plain {r['plain_ms']:.4f} ms, library "
               f"{lib}")
 
@@ -925,11 +1093,8 @@ def measure_probe3(calls: dict, launches: dict) -> list:
     got = tiled_probe3(a1, a2, b, c)
     want = ref.tiled_probe3_ref(a1, a2, b, c)
     err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-    # Compares this data needs: each side up to its first hit, all of its
-    # build on a miss.
-    compares = float(torch.where(want[0] >= 0, want[0] + 1, nb).sum()
-                     + torch.where(want[1] >= 0, want[1] + 1, nc).sum())
-    b_ms, b_by = bound(4 * (4 * bsz * na + bsz * (nb + nc)), compares)
+    b_ms, b_by = bound(*probe_least_work([a1, a2], [b, c]))
+    compares = dense_compares(want[0], nb) + dense_compares(want[1], nc)
     hits = float((want[0] >= 0).float().mean()), float(
         (want[1] >= 0).float().mean())
     valid = float((a1 != -1).float().mean())
@@ -938,13 +1103,19 @@ def measure_probe3(calls: dict, launches: dict) -> list:
         source="src/repro_torch/csrc/tiled_probe3.cu",
         replaces="src/repro/kernels/tiled_probe.py:146",
         launches=launches["tiled_probe3"], max_abs_err=err,
-        **time_kernel(lambda: tiled_probe3(a1, a2, b, c), 10),
+        **time_kernel(lambda: tiled_probe3(a1, a2, b, c), 10, cold=True),
         plain_ms=cuda_ms(lambda: ref.tiled_probe3_ref(a1, a2, b, c), 2),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         shape=f"B={bsz} na={na} nb={nb} nc={nc}")
+    # The same builds probed by a 64th of each row's slots: mostly the
+    # tables' build at the head of every block.
+    head = [k[:, :max(1, na // 64)].contiguous() for k in (a1, a2)]
+    build_ms = device_ms(lambda: tiled_probe3(*head, b, c), 10)
     print(f"  tiled_probe3 input: {valid:.3f} of the probe slots hold a "
           f"row; hit rates {hits[0]:.3f} and {hits[1]:.3f}; "
-          f"{compares:.4g} compares")
+          f"a dense scan would make {compares:.4g} compares; "
+          f"{copy_yardstick(a1.numel() + a2.numel())}; the same builds "
+          f"probed by a 64th of the slots take {build_ms:.4f} ms")
     report_kernels([row])
     return [row]
 
@@ -1043,6 +1214,31 @@ def check_gather_path(dev) -> None:
 # ---------------------------------------------------------------------------
 
 
+def ptxas_usage(report: str):
+    """(kernel, "registers, spills, shared memory") for each entry function
+    in ``nvcc -Xptxas -v`` output. Kernel names are the last component of
+    their mangled names; dynamic shared memory is set at launch and is not
+    in the report."""
+    def name(sym):
+        i, last = (3 if sym.startswith("_ZN") else 2), sym
+        while i < len(sym) and sym[i].isdigit():
+            j = i
+            while j < len(sym) and sym[j].isdigit():
+                j += 1
+            last, i = sym[j:j + int(sym[i:j])], j + int(sym[i:j])
+        return last
+
+    kernel, spills = "?", ""
+    for line in report.splitlines():
+        line = line.strip()
+        if "Compiling entry function" in line:
+            kernel = name(line.split("'")[1])
+        elif "spill stores" in line:
+            spills = line
+        elif line.startswith("ptxas info") and "Used" in line:
+            yield kernel, f"{line.split(':', 1)[1].strip()}; {spills}"
+
+
 @contextlib.contextmanager
 def phase(title: str):
     """Print a phase's title, and its wall time when it ends."""
@@ -1083,9 +1279,8 @@ def main() -> int:
               f"{time.perf_counter() - t0:.1f} s "
               f"(cached={build.build_log['cached']})")
         for src, report in build.build_log.get("ptxas", {}).items():
-            for line in report.splitlines():
-                if "Used" in line:
-                    print(f"  {src}: {line.strip()}")
+            for kernel, usage in ptxas_usage(report):
+                print(f"  {src} {kernel}: {usage}")
 
     with phase("3. kernels against their plain versions"):
         check_kernels_edge_cases(dev)

@@ -35,8 +35,9 @@ _U = ctypes.c_uint
 #: ``cudaError_t`` of its launch (0 = launched).
 SIGNATURES = {
     "repro_partition_hist": (_P, _LL, _I, _P, _P),
-    "repro_tiled_probe": (_P, _P, _I, _I, _I, _P, _P),
-    "repro_tiled_probe3": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
+    "repro_tiled_probe": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
+    "repro_tiled_probe3": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
+                           _P, _P),
     "repro_bitonic_sort": (_P, _P, _I, _I, _P, _P, _P),
     "repro_bloom_build": (_P, _P, _LL, _I, _I, _U, _U, _P, _P),
     "repro_bloom_probe": (_P, _LL, _P, _I, _I, _U, _U, _P, _P),

@@ -9,16 +9,21 @@ imports neither JAX nor the JAX package, and uses no fixture of
     PYTHONPATH=src python -m pytest -q -m cuda --noconftest tests/test_torch_cuda.py
 """
 
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.joins.ref import rows_as_set, rows_close
+from repro_torch.joins.slots import BUCKET_SEED, SHUFFLE_SEED
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.bitonic_sort import bitonic_sort_tile
 from repro_torch.kernels.bloom import bloom_build, bloom_probe
 from repro_torch.kernels.partition_hist import partition_hist
-from repro_torch.kernels.tiled_probe import tiled_probe, tiled_probe3
+from repro_torch.kernels.tiled_probe import (tiled_probe, tiled_probe3,
+                                             tables_fit_shared)
 from repro_torch.kernels.zone_map import key_range
 
 pytestmark = pytest.mark.cuda
@@ -45,31 +50,79 @@ def test_hist_equals_plain(cuda, n, nd):
     assert ops.launch_counts()["partition_hist"] == before + (n > 0)
 
 
-@pytest.mark.parametrize("bsz,na,nb", [(1, 1, 1), (5, 300, 700),
-                                       (2, 1000, 5000), (64, 960, 129)])
-def test_probe_equals_plain(cuda, bsz, na, nb):
+def _chip_smoke():
+    """``chip_smoke.py``'s edge-case generators (it imports no JAX)."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_cases", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def table_branch(*ns):
+    return "shared" if tables_fit_shared(*ns) else "device"
+
+
+# "random": keys from a narrow range (duplicates, hits and misses); the
+# other kinds are chip_smoke.py's first-match table edge cases: one radix
+# bucket's hash32 residue, all-equal builds, the int32 ends and sentinels.
+# nb = 100,000 takes the tables in device memory.
+@pytest.mark.parametrize("bsz,na,nb,kind", [
+    (1, 1, 1, "random"), (5, 300, 700, "random"), (2, 1000, 5000, "random"),
+    (64, 960, 129, "random"), (256, 2048, 129, "one residue"),
+    (64, 960, 129, "all equal"), (3, 5000, 4700, "extremes"),
+    (2, 20_000, 100_000, "one residue"), (2, 20_000, 100_000, "all equal"),
+    (2, 20_000, 100_000, "extremes")])
+def test_probe_equals_plain(cuda, bsz, na, nb, kind):
     rng = np.random.default_rng(na + nb)
-    a = on(cuda, rng.integers(-1, nb // 2 + 2, (bsz, na)).astype(np.int32))
-    b = on(cuda, rng.integers(-2, nb // 2 + 2, (bsz, nb)).astype(np.int32))
+    if kind == "random":
+        a = rng.integers(-1, nb // 2 + 2, (bsz, na)).astype(np.int32)
+        b = rng.integers(-2, nb // 2 + 2, (bsz, nb)).astype(np.int32)
+    else:
+        a, b = _chip_smoke().probe_edge_keys(rng, bsz, na, nb, BUCKET_SEED,
+                                             64, kind)
+    a, b = on(cuda, a), on(cuda, b)
+    branch = table_branch(nb)
+    before = tiled_probe.table_launches[branch]
     assert torch.equal(tiled_probe(a, b), ref.tiled_probe_ref(a, b))
+    assert tiled_probe.table_launches[branch] == before + 1
 
 
-@pytest.mark.parametrize("bsz,na,nb,nc", [(1, 1, 1, 1), (1, 255, 0, 7),
-                                          (8, 257, 1, 0), (8, 256, 700, 5),
-                                          (3, 70_000, 4700, 1300)])
-def test_probe3_equals_plain(cuda, bsz, na, nb, nc):
+@pytest.mark.parametrize("bsz,na,nb,nc,kind", [
+    (1, 1, 1, 1, "random"), (1, 255, 0, 7, "random"),
+    (8, 257, 1, 0, "random"), (8, 256, 700, 5, "random"),
+    (3, 70_000, 4700, 1300, "random"),
+    (8, 20_000, 8768, 2368, "one residue"),
+    (8, 20_000, 8768, 2368, "all equal"),
+    (8, 20_000, 8768, 2368, "extremes"),
+    (4, 10_000, 60_000, 30_000, "one residue"),
+    (4, 10_000, 60_000, 30_000, "all equal"),
+    (4, 10_000, 60_000, 30_000, "extremes")])
+def test_probe3_equals_plain(cuda, bsz, na, nb, nc, kind):
     rng = np.random.default_rng(na + nb + nc)
-    hi = max(nb, nc) // 2 + 2
-    keys = [rng.integers(-2, hi, shape).astype(np.int32)
-            for shape in ((bsz, na), (bsz, na), (bsz, nb), (bsz, nc))]
-    for k in keys:  # the sentinels and the ends of the int32 range
-        k.reshape(-1)[:4] = [-1, -2, -(2 ** 31), 2 ** 31 - 1][:k.size]
+    if kind == "random":
+        hi = max(nb, nc) // 2 + 2
+        keys = [rng.integers(-2, hi, shape).astype(np.int32)
+                for shape in ((bsz, na), (bsz, na), (bsz, nb), (bsz, nc))]
+        for k in keys:  # the sentinels and the ends of the int32 range
+            k.reshape(-1)[:4] = [-1, -2, -(2 ** 31), 2 ** 31 - 1][:k.size]
+    else:  # keys of one cube partition: one hash32 residue on every side
+        cases = _chip_smoke()
+        a1, b = cases.probe_edge_keys(rng, bsz, na, nb, SHUFFLE_SEED, 8,
+                                      kind)
+        a2, c = cases.probe_edge_keys(rng, bsz, na, nc, SHUFFLE_SEED, 8,
+                                      kind)
+        keys = [a1, a2, b, c]
     a1, a2, b, c = (on(cuda, k) for k in keys)
-    before = ops.launch_counts()["tiled_probe3"]
+    branch = table_branch(nb, nc)
+    before = (ops.launch_counts()["tiled_probe3"],
+              tiled_probe3.table_launches[branch])
     got = tiled_probe3(a1, a2, b, c)
     want = ref.tiled_probe3_ref(a1, a2, b, c)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    assert ops.launch_counts()["tiled_probe3"] == before + 1
+    assert (ops.launch_counts()["tiled_probe3"],
+            tiled_probe3.table_launches[branch]) == (before[0] + 1,
+                                                     before[1] + 1)
 
 
 @pytest.mark.parametrize("logn", range(0, 13))
