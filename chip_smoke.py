@@ -12,7 +12,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    filter kernels bit for bit; the two probes also on the inputs that are
    hard for their first-match tables: keys sharing one hash32 residue,
    all-equal builds, the int32 ends and sentinels, and builds too large
-   for shared memory, so that both table branches launch);
+   for shared memory, so that both table branches launch; the histogram
+   in every branch, masked and unmasked, on views off a 16-byte boundary,
+   all-invalid and one-bin inputs, runs long enough to flush its packed
+   counters, and from two streams at once; the bloom probe with filters in
+   shared and in device memory, k = 1..8, all kept, all rejected and on
+   views);
 4. the main path: q1-q12 under the four default strategies on
    ``generate(scale, p=8, seed=0)`` on the card: one warm-up pass, then the
    reported pass, with every launch count set to 0 just before and read
@@ -22,7 +27,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    The largest input each kernel saw is kept, and each kernel, its plain
    version and one PyTorch call for the same function are timed on it
    with CUDA events (the kernel also by its device time alone, from events
-   around each call queued behind a sleep kernel);
+   around each call queued behind a sleep kernel; the histogram also
+   unmasked, at four times the input, with L2 emptied, beside the old
+   ``torch.where`` pair and a reduction of the same bytes);
 5. runtime filters on the same catalog: q19-q23 under
    ``FilteredStrategy(s)`` for each default strategy, after a warm-up pass
    and beside the unfiltered runs: the same rows, the planned filter kinds,
@@ -30,7 +37,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    launched (counts set to 0 just before the filtered pass and read just
    after); then the suite again against one shared ``FilterCache``, warm;
    one pass under ``torch.profiler``; then the filter kernels timed at
-   their largest inputs, as in phase 4;
+   their largest inputs, as in phase 4 (the bloom probe also at four times
+   the input and with L2 emptied);
 5b. reordering and the hypercube on the same catalog: q13-q15 and q35-q37
    under ``ReorderingStrategy(s)`` for each default strategy, and q35-q37
    also with ``hypercube=False``, after a warm-up pass: every run gives the
@@ -68,11 +76,14 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-#: Published H100 SXM peaks (NVIDIA data sheet): device memory rate, and the
-#: float32 rate outside the tensor cores, the only non-tensor peak given;
-#: the kernels' integer compares are counted against it.
+#: Published H100 SXM peaks: the device memory rate (NVIDIA data sheet),
+#: and the 32-bit integer instruction rate, which every kernel's operation
+#: count is: the data sheet's 67 TFLOP/s float32 peak times 64/128 (the
+#: CUDA C++ Programming Guide's results per clock per SM for 32-bit integer
+#: add, multiply-add, logic and shift against float32 FMA at compute
+#: capability 9.0), over the 2 operations an FMA counts for.
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = 67e12
+PEAK_INT_OPS_PER_S = 67e12 * 64 / 128 / 2
 
 GOLDEN = ROOT / "tests" / "fixtures" / "golden_plans.json"
 
@@ -181,11 +192,20 @@ def copy_yardstick(n: int) -> str:
             f"{device_ms(fn, 20, flush=l2_flush()):.4f} ms with L2 emptied")
 
 
+def device_readings(fn, reps: int, bound_ms: float) -> str:
+    """Device time of ``fn`` back to back and with L2 emptied, each with
+    the share of ``bound_ms`` it reaches."""
+    warm = device_ms(fn, reps)
+    cold = device_ms(fn, reps, flush=l2_flush())
+    return (f"device {warm:.4f} ms ({bound_ms / warm:.0%} of the bound), "
+            f"L2 emptied {cold:.4f} ms ({bound_ms / cold:.0%})")
+
+
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
     """Least time (ms) for moving ``nbytes`` and doing ``ops``, and which of
     the two sets it."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S * 1e3
+    t_ops = ops / PEAK_INT_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -282,23 +302,12 @@ def check_kernels_edge_cases(dev) -> None:
 
     from repro_torch.kernels import ref
     from repro_torch.kernels.bitonic_sort import MAX_TILE, bitonic_sort_tile
-    from repro_torch.kernels.partition_hist import partition_hist
     from repro_torch.kernels.tiled_probe import tiled_probe
 
     rng = np.random.default_rng(0)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
 
-    n_cases = 0
-    for n in (0, 1, 31, 1000, 100_003, 3_000_000):
-        for nd in (4, 8, 128, 20000):
-            d = t(rng.integers(-1, nd + 2, n).astype(np.int32))
-            got = partition_hist(d, nd=nd)
-            want = ref.partition_hist_ref(d, nd)
-            require(torch.equal(got, want), f"partition_hist n={n} nd={nd}")
-            n_cases += 1
-    d = t(np.full(5000, -1, np.int32))
-    require(int(partition_hist(d, nd=8).sum()) == 0, "partition_hist all -1")
-    print(f"  partition_hist: {n_cases + 1} cases equal to the plain version")
+    check_hist_edge_cases(dev, rng)
 
     def probe_case(a, b, label):
         got = tiled_probe(t(a), t(b))
@@ -356,6 +365,87 @@ def check_kernels_edge_cases(dev) -> None:
           "version (sorted keys equal, values address them)")
 
     check_probe3_edge_cases(dev)
+
+
+#: Bin counts that reach every branch of partition_hist and its edges:
+#: registers (nd <= 16, one, two and four packed words), shared memory
+#: (nd <= 12288) and device memory.
+HIST_EDGE_ND = (1, 8, 16, 17, 12288, 12289, 20000)
+
+
+def check_hist_edge_cases(dev, rng) -> None:
+    """partition_hist against its plain version: every branch, with and
+    without the mask, on views 0-3 elements off an aligned base and odd
+    lengths, all-invalid and one-bin inputs, long per-thread runs that make
+    the packed counters flush, and calls in flight on two streams."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.partition_hist import partition_hist
+
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    branches = dict(partition_hist.branch_launches)
+    n_cases = 0
+
+    def case(d, nd, valid, label):
+        nonlocal n_cases
+        got = partition_hist(d, nd=nd, valid=valid)
+        require(torch.equal(got, ref.partition_hist_ref(d, nd, valid)),
+                f"partition_hist {label}")
+        n_cases += 1
+
+    for n in (0, 1, 31, 1000, 100_003, 3_000_000):
+        for nd in (4, 8, 128, 20000):
+            d = t(rng.integers(-1, nd + 2, n).astype(np.int32))
+            case(d, nd, None, f"n={n} nd={nd}")
+    for nd in HIST_EDGE_ND:
+        d = t(rng.integers(-1, nd + 2, 1_000_011).astype(np.int32))
+        v = t(rng.random(1_000_011) < 0.7)
+        for d0, v0, n in ((0, 0, 1_000_000), (1, 1, 999_999), (3, 0, 7),
+                          (2, 3, 500_002), (1, 2, 2)):
+            for valid in (None, v[v0:v0 + n]):
+                case(d[d0:d0 + n], nd, valid,
+                     f"nd={nd} views +{d0} +{v0} n={n} "
+                     f"masked={valid is not None}")
+        one = torch.full((1_000_001,), nd - 1, dtype=torch.int32, device=dev)
+        case(one, nd, None, f"nd={nd} one bin")
+        case(one, nd, torch.zeros_like(one, dtype=torch.bool),
+             f"nd={nd} all invalid")
+        case(torch.full_like(one, -1), nd, None, f"nd={nd} all -1")
+    # 2^31 / 64 rows in one bin and at random: every thread of the one-wave
+    # grid counts long enough runs that its 8-bit lanes flush.
+    n = 2 ** 31 // 64
+    for bin_ in (0, 7):
+        case(torch.full((n,), bin_, dtype=torch.int32, device=dev), 8, None,
+             f"n={n} all in bin {bin_}")
+    d = torch.randint(-1, 9, (n,), dtype=torch.int32, device=dev)
+    case(d, 8, torch.rand(n, device=dev) < 0.9, f"n={n} random masked")
+    del d
+    # Two streams at once, each call adding into its stream's accumulator.
+    if dev.type == "cuda":
+        for nd in (8, 17, 20000):
+            inputs = [t(rng.integers(-1, nd + 1, 4_000_000).astype(np.int32))
+                      for _ in range(2)]
+            want = [ref.partition_hist_ref(d, nd) for d in inputs]
+            streams = [torch.cuda.Stream() for _ in inputs]
+            torch.cuda.synchronize()
+            got = [[], []]
+            for _ in range(20):
+                for i, (s, d) in enumerate(zip(streams, inputs)):
+                    with torch.cuda.stream(s):
+                        got[i].append(partition_hist(d, nd=nd))
+            torch.cuda.synchronize()
+            require(all(torch.equal(g, want[i])
+                        for i in range(2) for g in got[i]),
+                    f"partition_hist nd={nd} on two streams at once")
+            n_cases += 40
+    took = {k: v - branches[k]
+            for k, v in partition_hist.branch_launches.items()}
+    require(all(v > 0 for v in took.values()),
+            f"partition_hist branches launched {took}")
+    print(f"  partition_hist: {n_cases} cases equal to the plain version; "
+          f"branches of the edge cases {took}")
 
 
 def check_probe3_edge_cases(dev) -> None:
@@ -463,6 +553,48 @@ def check_filter_kernels_edge_cases(dev) -> None:
     print(f"  bloom_build, bloom_probe: {n_bloom} cases each bit-identical "
           "to the plain versions, no false negatives")
     print(f"  key_range: {n_range} cases equal to the plain version")
+    check_bloom_probe_edge_cases(dev, rng)
+
+
+def check_bloom_probe_edge_cases(dev, rng) -> None:
+    """bloom_probe against its plain version in both filter branches
+    (shared memory up to 2^20 bits, device memory above), k = 1..8, on keys
+    that all pass (the build's own), all fail (the empty filter) and views
+    0-3 keys off an aligned base."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bloom import bloom_build, bloom_probe
+
+    branches = dict(bloom_probe.filter_launches)
+    keys = torch.from_numpy(rng.integers(
+        -(2 ** 31), 2 ** 31 - 1, 300_007, dtype=np.int64).astype(
+            np.int32)).to(dev)
+    n_cases = 0
+    for m_bits in (1 << 16, 1 << 20, 1 << 21, 1 << 22):
+        empty = torch.zeros(m_bits // 32, dtype=torch.int32, device=dev)
+        for k in range(1, 9):
+            words = bloom_build(keys[:20_000], m_bits=m_bits, k=k)
+            for off in range(4):
+                kv = keys[off:]
+                label = f"m_bits={m_bits} k={k} view +{off}"
+                require(torch.equal(bloom_probe(kv, words, k=k),
+                                    ref.bloom_probe_ref(kv, words, k)),
+                        f"bloom_probe {label}")
+                require(bool(bloom_probe(kv[:20_000 - off], words,
+                                         k=k).all()),
+                        f"bloom_probe {label}: a build key rejected")
+                require(not bool(bloom_probe(kv, empty, k=k).any()),
+                        f"bloom_probe {label}: the empty filter kept a key")
+                n_cases += 3
+    took = {k: v - branches[k]
+            for k, v in bloom_probe.filter_launches.items()}
+    require(all(v > 0 for v in took.values()),
+            f"bloom_probe filter branches launched {took}")
+    print(f"  bloom_probe: {n_cases} more cases equal to the plain version "
+          f"(all kept, all rejected, views); filter branches "
+          f"of the edge cases {took}")
 
 
 # ---------------------------------------------------------------------------
@@ -569,6 +701,7 @@ def run_main_path(catalog):
 
     spy = LargestInputs()
     results: dict = {}
+    suite_bytes: dict = {}
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t_phase = time.perf_counter()
@@ -580,6 +713,8 @@ def run_main_path(catalog):
             before = after
             cols = res.table.to_numpy()
             results[(qname, s.name)] = cols
+            suite_bytes[s.name] = suite_bytes.get(s.name, 0) + \
+                res.network_bytes
             print(f"  {qname:20s} {s.name:13s} "
                   f"{','.join(m.value for m in res.methods()):40s} "
                   f"net={res.network_bytes:.0f} rows={res.rows} "
@@ -591,6 +726,8 @@ def run_main_path(catalog):
     launches = ops.launch_counts()
     print(f"  main path: {time.perf_counter() - t_phase:.1f} s for "
           f"{len(queries) * len(strategies)} runs; launches {launches}")
+    print("  suite network bytes: " + ", ".join(
+        f"{name} {b:.0f}" for name, b in suite_bytes.items()))
     print(f"  torch.cuda.max_memory_allocated: "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     for name in MAIN_KERNELS:
@@ -613,10 +750,17 @@ def run_main_path(catalog):
     return launches, spy.calls
 
 
+#: Device kernels of the two redesigned kernels, by the names the profiler
+#: gives them.
+WATCHED = {"partition_hist": ("hist_registers", "hist_bins"),
+           "bloom_probe": ("bloom_probe_kernel",)}
+
+
 def profile_pass(run_all) -> None:
     """One more pass over the main path under ``torch.profiler``: the
-    device's busy and idle share of the pass's wall time, and the kernels
-    that take the device time."""
+    device's busy and idle share of the pass's wall time, the kernels that
+    take the device time, and the device time and activities of the
+    ``WATCHED`` kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -648,6 +792,11 @@ def profile_pass(run_all) -> None:
           f"device busy {busy / 1e3:.1f} ms, idle share "
           f"{1 - busy / wall_us:.3f}; {sum(n for n, _ in by_name.values())} "
           "device activities")
+    for label, parts in WATCHED.items():
+        hits = [(n, us) for name, (n, us) in by_name.items()
+                if any(part in name for part in parts)]
+        print(f"  {label} kernels: {sum(n for n, _ in hits)} activities, "
+              f"{sum(us for _, us in hits) / 1e3:.3f} ms of device time")
     print("  device time by kernel:")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
     for name, (n, us) in top:
@@ -676,23 +825,8 @@ def measure_kernels(calls: dict, launches: dict) -> list:
     rows = []
 
     _, (dest,), kw = calls["partition_hist"]
-    nd = kw["nd"]
-    n = dest.numel()
-    got, want = partition_hist(dest, nd=nd), ref.partition_hist_ref(dest, nd)
-    err = float((got - want).abs().max())
-    shifted = dest + 1  # bincount's yardstick: bin 0 takes the -1 rows
-    b_ms, b_by = bound(4 * n + 4 * nd, n)
-    rows.append(dict(
-        name="partition_hist", route="cuda",
-        source="src/repro_torch/csrc/partition_hist.cu",
-        replaces="src/repro/kernels/partition_hist.py:46",
-        launches=launches["partition_hist"], max_abs_err=err,
-        **time_kernel(lambda: partition_hist(dest, nd=nd), 50),
-        plain_ms=cuda_ms(lambda: ref.partition_hist_ref(dest, nd), 20),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=cuda_ms(lambda: torch.bincount(shifted,
-                                                  minlength=nd + 1), 50),
-        shape=f"n={n} nd={nd}"))
+    rows.append(measure_hist(dest, kw["nd"], kw.get("valid"),
+                             launches["partition_hist"]))
 
     _, (a, b), _ = calls["tiled_probe"]
     bsz, na = a.shape
@@ -738,6 +872,75 @@ def measure_kernels(calls: dict, launches: dict) -> list:
 
     report_kernels(rows)
     return rows
+
+
+def hist_least_work(n: int, nd: int, masked: bool) -> tuple[float, float]:
+    """Least work of partition_hist: each destination (and mask byte) read
+    once, each count written once; one operation an element. Returns
+    (bytes, operations)."""
+    return (4 + masked) * n + 4 * nd, n
+
+
+def measure_hist(dest, nd: int, valid, launches: int) -> dict:
+    """K1 at the main path's largest call, masked as the exchange calls it:
+    the JSON row, and beside it the unmasked call, the same input four
+    times over, L2 emptied, the old pair (``torch.where`` then the
+    histogram) and a read-only reduction of the same destination bytes."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.partition_hist import partition_hist
+
+    n = dest.numel()
+    masked = lambda: partition_hist(dest, nd=nd, valid=valid)  # noqa: E731
+    unmasked = lambda: partition_hist(dest, nd=nd)  # noqa: E731
+    got = masked()
+    err = float((got - ref.partition_hist_ref(dest, nd, valid)).abs().max())
+    shifted = torch.where(valid, dest, -1) + 1  # bincount's bin 0 takes -1
+    b_ms, b_by = bound(*hist_least_work(n, nd, True))
+    row = dict(
+        name="partition_hist", route="cuda",
+        source="src/repro_torch/csrc/partition_hist.cu",
+        replaces="src/repro/kernels/partition_hist.py:46",
+        launches=launches, max_abs_err=err,
+        **time_kernel(masked, 100, cold=True),
+        plain_ms=cuda_ms(lambda: ref.partition_hist_ref(dest, nd, valid), 20),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_ms(lambda: torch.bincount(shifted,
+                                                  minlength=nd + 1), 50),
+        shape=f"n={n} nd={nd} masked")
+    print(f"  partition_hist at n={n}, nd={nd} "
+          f"({float(valid.float().mean()):.3f} of the rows valid):")
+    print(f"    masked, as the exchange calls it: "
+          f"{device_readings(masked, 100, b_ms)}; bound {b_ms:.5f} ms "
+          f"({b_by})")
+    u_ms, _ = bound(*hist_least_work(n, nd, False))
+    print(f"    unmasked: {device_readings(unmasked, 100, u_ms)}; bound "
+          f"{u_ms:.5f} ms")
+    old = device_ms(lambda: partition_hist(torch.where(valid, dest, -1),
+                                           nd=nd), 100)
+    print(f"    the old pair, torch.where then the unmasked call: device "
+          f"{old:.4f} ms")
+    small = lambda: partition_hist(dest[:4096], nd=nd,  # noqa: E731
+                                   valid=valid[:4096])
+    print(f"    the same call on its first 4,096 rows (the fixed cost): "
+          f"device {device_ms(small, 100):.4f} ms")
+    total = lambda: dest.sum()  # noqa: E731
+    print(f"    yardstick, dest.sum() over the same {4 * n / 1e6:.1f} MB: "
+          f"device {device_ms(total, 100):.4f} ms, L2 emptied "
+          f"{device_ms(total, 100, flush=l2_flush()):.4f} ms")
+    d4, v4 = dest.repeat(4), valid.repeat(4)
+    b4, _ = bound(*hist_least_work(4 * n, nd, True))
+    u4, _ = bound(*hist_least_work(4 * n, nd, False))
+    masked4 = lambda: partition_hist(d4, nd=nd, valid=v4)  # noqa: E731
+    unmasked4 = lambda: partition_hist(d4, nd=nd)  # noqa: E731
+    total4 = lambda: d4.sum()  # noqa: E731
+    print(f"    four times the input (n={4 * n}): masked "
+          f"{device_readings(masked4, 50, b4)}, bound {b4:.5f} ms; unmasked "
+          f"{device_readings(unmasked4, 50, u4)}, bound {u4:.5f} ms; "
+          f"dest.sum() {device_ms(total4, 50):.4f} ms, L2 emptied "
+          f"{device_ms(total4, 50, flush=l2_flush()):.4f} ms")
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -909,32 +1112,8 @@ def measure_filter_kernels(calls: dict, launches: dict) -> list:
         shape=f"n={n} valid={n_valid} m_bits={m_bits} k={k}"))
 
     _, (keys, words), kw = calls["bloom_probe"]
-    k = kw["k"]
-    m_bits = words.numel() * 32
-    flat_k = keys.reshape(-1)
-    n = flat_k.numel()
-    got = bloom_probe(keys, words, k=k)
-    want = ref.bloom_probe_ref(flat_k, words, k)
-    # Bits this data tests: each key stops at its first clear bit.
-    alive = torch.ones_like(flat_k, dtype=torch.bool)
-    tested = 0
-    w64 = words.long() & 0xFFFFFFFF
-    for i in range(k):
-        tested += int(alive.sum())
-        pos = ref.bloom_positions(flat_k, i, m_bits)
-        alive &= ((w64[pos >> 5] >> (pos & 31)) & 1).bool()
-    b_ms, b_by = bound(5 * n + m_bits // 8, 13 * n + 7 * tested)
-    rows.append(dict(
-        name="bloom_probe", route="cuda",
-        source="src/repro_torch/csrc/bloom.cu",
-        replaces="src/repro/kernels/bloom.py:167",
-        launches=launches["bloom_probe"],
-        max_abs_err=float((got.reshape(-1).int() - want.int()).abs().max()),
-        **time_kernel(lambda: bloom_probe(keys, words, k=k), 200),
-        plain_ms=cuda_ms(lambda: ref.bloom_probe_ref(flat_k, words, k), 20),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        shape=f"{tuple(keys.shape)} m_bits={m_bits} k={k} kept="
-              f"{float(want.float().mean()):.3f}"))
+    rows.append(measure_bloom_probe(keys, words, kw["k"],
+                                    launches["bloom_probe"]))
 
     _, (keys, valid), _ = calls["key_range"]
     flat_k, flat_v = keys.reshape(-1), valid.reshape(-1)
@@ -956,6 +1135,68 @@ def measure_filter_kernels(calls: dict, launches: dict) -> list:
         shape=f"{tuple(keys.shape)} valid={int(flat_v.sum())}"))
     report_kernels(rows)
     return rows
+
+
+def bloom_probe_least_work(flat_k, words, k: int) -> tuple[float, float]:
+    """Least work of bloom_probe on these keys: each key read once and its
+    byte written once, the filter read once; two hash chains a key (13
+    operations) and 7 for each bit the key's data makes it test, up to its
+    first clear bit. Returns (bytes, operations)."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    m_bits = words.numel() * 32
+    alive = torch.ones_like(flat_k, dtype=torch.bool)
+    tested = 0
+    w64 = words.long() & 0xFFFFFFFF
+    for i in range(k):
+        tested += int(alive.sum())
+        pos = ref.bloom_positions(flat_k, i, m_bits)
+        alive &= ((w64[pos >> 5] >> (pos & 31)) & 1).bool()
+    n = flat_k.numel()
+    return 5.0 * n + m_bits // 8, 13.0 * n + 7 * tested
+
+
+def measure_bloom_probe(keys, words, k: int, launches: int) -> dict:
+    """K5 at the filter path's largest call: the JSON row, and beside it
+    the device time back to back and with L2 emptied at this input and at
+    four times it, the fixed cost of a call, and a copy of the keys."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bloom import bloom_probe
+
+    m_bits = words.numel() * 32
+    flat_k = keys.reshape(-1)
+    n = flat_k.numel()
+    probe = lambda: bloom_probe(keys, words, k=k)  # noqa: E731
+    got = probe()
+    want = ref.bloom_probe_ref(flat_k, words, k)
+    nbytes, ops = bloom_probe_least_work(flat_k, words, k)
+    b_ms, b_by = bound(nbytes, ops)
+    row = dict(
+        name="bloom_probe", route="cuda",
+        source="src/repro_torch/csrc/bloom.cu",
+        replaces="src/repro/kernels/bloom.py:167",
+        launches=launches,
+        max_abs_err=float((got.reshape(-1).int() - want.int()).abs().max()),
+        **time_kernel(probe, 200, cold=True),
+        plain_ms=cuda_ms(lambda: ref.bloom_probe_ref(flat_k, words, k), 20),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=f"{tuple(keys.shape)} m_bits={m_bits} k={k} kept="
+              f"{float(want.float().mean()):.3f}")
+    keys4 = keys.repeat(1, 4)
+    b4, _ = bound(*bloom_probe_least_work(keys4.reshape(-1), words, k))
+    four = lambda: bloom_probe(keys4, words, k=k)  # noqa: E731
+    head = flat_k[:4096]
+    print(f"  bloom_probe at {tuple(keys.shape)}, m_bits={m_bits}, k={k}: "
+          f"{nbytes / 1e6:.2f} MB, {ops / 1e6:.1f}M operations; bound "
+          f"{b_ms:.5f} ms ({b_by})")
+    print(f"    {device_readings(probe, 200, b_ms)}; four times the input "
+          f"{device_readings(four, 100, b4)}, bound {b4:.5f} ms")
+    print(f"    the same call on 4,096 keys (the fixed cost): device "
+          f"{device_ms(lambda: bloom_probe(head, words, k=k), 100):.4f} ms; "
+          f"{copy_yardstick(n)}; four times: {copy_yardstick(4 * n)}")
+    return row
 
 
 def report_kernels(rows: list) -> None:
@@ -1314,8 +1555,10 @@ def main() -> int:
         check_gather_path(dev)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "device_ms", "device_cold_ms", "shape")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
+                                  for r in rows]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

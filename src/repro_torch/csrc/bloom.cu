@@ -8,18 +8,36 @@
 // all in uint32 arithmetic, which wraps as the reference's does; the key's
 // int32 bits are read as uint32, as numpy's astype(np.uint32) reads them.
 // The filter is m_bits / 32 uint32 words, bit b of word w = position 32w + b.
-//
-// Bound on this card: bytes. The build reads 5 bytes a key (key, valid) and
-// sets k bits; the probe reads 4 bytes a key and writes 1, with k word loads
-// from a filter of at most 8 KB on the main path, which stays in L1/L2.
 // The TPU version built and read the filter through one-hot matmuls, a
-// workaround for having no scatter or gather. Here:
-//  * build: one thread per key over a grid-stride loop, one atomicOr per bit
-//    into the words, zeroed on the stream first; OR is order-free, so the
-//    filter is bit-identical to the plain version whatever the schedule;
-//  * probe: one thread per key, k word loads through the read-only cache
-//    (__ldg), stopping at the first clear bit; invalid rows are probed too
-//    (the caller ANDs the mask with its validity), one byte per key out.
+// workaround for having no scatter or gather.
+//
+// Build. Bound on this card: bytes (5 bytes a key in, the words out). One
+// thread per key over a grid-stride loop, one atomicOr per bit into the
+// words, zeroed on the stream first; OR is order-free, so the filter is
+// bit-identical to the plain version whatever the schedule.
+//
+// Probe. Bound on this card: integer operations. It reads 4 bytes a key and
+// writes 1, but a key costs two hash chains (13 operations) and each bit it
+// tests about 7 more, and that outweighs the bytes. Design:
+//  * the filter is staged in shared memory once per block of a one-wave
+//    grid (m_bits / 8 bytes: 8 KB at the main path's 65,536 bits), where
+//    the wrapper finds it fits (227 KB, m_bits <= 2^20); larger filters are
+//    read from device memory through the read-only cache (__ldg);
+//  * each thread takes four keys at a time with one 16-byte load (a scalar
+//    head and tail for views off a 16-byte boundary) and stores their four
+//    bytes with one 32-bit store where the output allows it;
+//  * the four keys' bit tests interleave, so their shared-memory loads are
+//    in flight together; a bit costs an add, two operations for its word's
+//    byte offset, the load, a funnel shift and an AND. Every key tests all
+//    k bits, with no branch: the early exit of the one-key-a-thread kernel
+//    this replaces saved nothing at the warp level (a warp of 32 keys at
+//    the main path's 28.7% kept nearly always holds a kept key), and
+//    variants that skipped a rejected key's later loads measured no
+//    faster (PERF.md). Random word reads conflict on shared-memory banks:
+//    of a warp's 32 reads of a 2,048-word filter, the busiest of the 32
+//    banks is expected to take 3 or 4, and those wavefronts set the pace
+//    together with the operations. Invalid rows are probed too (the
+//    caller ANDs the mask with its validity).
 
 #include <cstdint>
 
@@ -60,25 +78,142 @@ __global__ void bloom_build_kernel(const int* __restrict__ keys,
   }
 }
 
-__global__ void bloom_probe_kernel(const int* __restrict__ keys, long long n,
-                                   const unsigned int* __restrict__ words,
-                                   uint32_t mask, int k, uint32_t seed1,
-                                   uint32_t seed2,
-                                   unsigned char* __restrict__ out) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < n; i += stride) {
-    const uint32_t key = static_cast<uint32_t>(keys[i]);
-    const uint32_t h1 = hash32(key, seed1);
-    const uint32_t h2 = hash32(key, seed2) | 1u;
-    bool keep = true;
-    for (int j = 0; j < k && keep; ++j) {
-      const uint32_t pos = (h1 + static_cast<uint32_t>(j) * h2) & mask;
-      keep = (__ldg(&words[pos >> 5]) >> (pos & 31u)) & 1u;
-    }
-    out[i] = keep ? 1 : 0;
+constexpr int kProbeThreads = 512;
+
+// The filter word at byte offset `off`: staged in shared memory, or in
+// device memory.
+template <bool SHARED>
+__device__ __forceinline__ unsigned filter_word(const unsigned* words,
+                                                uint32_t off) {
+  const auto* w = reinterpret_cast<const unsigned*>(
+      reinterpret_cast<const char*>(words) + off);
+  if (SHARED) return *w;
+  return __ldg(w);
+}
+
+// Keep bits (bit 8e for key e) of NK keys against the filter. A position
+// p = pos & (m_bits - 1) lies in the word at byte offset (pos >> 3) &
+// word_bytes (the filter's bytes less one, word-aligned), at bit pos & 31,
+// which the funnel shift takes from pos itself: two operations for the
+// word, one to bring the bit to bit 0.
+template <bool SHARED, int NK>
+__device__ __forceinline__ unsigned probe_keys(const unsigned* words,
+                                               const uint32_t (&key)[NK],
+                                               uint32_t word_bytes, int k,
+                                               uint32_t seed1,
+                                               uint32_t seed2) {
+  uint32_t pos[NK], step[NK], keep[NK];
+#pragma unroll
+  for (int e = 0; e < NK; ++e) {
+    pos[e] = hash32(key[e], seed1);
+    step[e] = hash32(key[e], seed2) | 1u;
+    keep[e] = 1u;
   }
+  for (int j = 0; j < k; ++j) {
+#pragma unroll
+    for (int e = 0; e < NK; ++e) {
+      const unsigned w =
+          filter_word<SHARED>(words, (pos[e] >> 3) & word_bytes);
+      keep[e] &= __funnelshift_r(w, w, pos[e]);
+      pos[e] += step[e];
+    }
+  }
+  unsigned out = 0;
+#pragma unroll
+  for (int e = 0; e < NK; ++e) out |= (keep[e] & 1u) << (8 * e);
+  return out;
+}
+
+// WORD_STORE: the four output bytes of a vector start on a 4-byte
+// boundary, so one 32-bit store writes them.
+template <bool SHARED, bool WORD_STORE>
+__global__ void __launch_bounds__(kProbeThreads)
+    bloom_probe_kernel(const int* __restrict__ keys, long long n,
+                       const unsigned* __restrict__ words, int nwords,
+                       int k, uint32_t seed1, uint32_t seed2,
+                       unsigned char* __restrict__ out) {
+  extern __shared__ unsigned staged[];
+  const unsigned* filter = words;
+  if (SHARED) {
+    if ((nwords & 3) == 0 && (reinterpret_cast<uintptr_t>(words) & 15) == 0) {
+      const int4* src = reinterpret_cast<const int4*>(words);
+      int4* dst = reinterpret_cast<int4*>(staged);
+      for (int i = threadIdx.x; i < nwords / 4; i += blockDim.x) {
+        dst[i] = __ldg(src + i);
+      }
+    } else {
+      for (int i = threadIdx.x; i < nwords; i += blockDim.x) {
+        staged[i] = __ldg(words + i);
+      }
+    }
+    __syncthreads();
+    filter = staged;
+  }
+  const uint32_t word_bytes = 4u * (nwords - 1);
+  const long long off = (reinterpret_cast<uintptr_t>(keys) & 15) >> 2;
+  long long head = off ? 4 - off : 0;
+  if (head > n) head = n;
+  const long long nvec = (n - head) >> 2;
+  const long long tail_start = head + 4 * nvec;
+  const long long gid =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+
+  // The head (keys before the first 16-byte boundary) and the tail, one
+  // key a thread on the grid's first threads.
+  if (gid < head + (n - tail_start)) {
+    const long long i = gid < head ? gid : tail_start + (gid - head);
+    const uint32_t key[1] = {static_cast<uint32_t>(keys[i])};
+    out[i] = static_cast<unsigned char>(probe_keys<SHARED, 1>(
+        filter, key, word_bytes, k, seed1, seed2));
+  }
+  for (long long j = gid; j < nvec; j += stride) {
+    const long long i = head + 4 * j;
+    const int4 x = __ldg(reinterpret_cast<const int4*>(keys + i));
+    const uint32_t key[4] = {static_cast<uint32_t>(x.x),
+                             static_cast<uint32_t>(x.y),
+                             static_cast<uint32_t>(x.z),
+                             static_cast<uint32_t>(x.w)};
+    const unsigned bytes = probe_keys<SHARED, 4>(
+        filter, key, word_bytes, k, seed1, seed2);
+    if (WORD_STORE) {
+      *reinterpret_cast<unsigned*>(out + i) = bytes;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        out[i + e] = static_cast<unsigned char>(bytes >> (8 * e));
+      }
+    }
+  }
+}
+
+template <bool SHARED, bool WORD_STORE>
+int launch_probe(const int* keys, long long n, const unsigned* words,
+                 int m_bits, int k, uint32_t seed1, uint32_t seed2,
+                 unsigned char* out, cudaStream_t s) {
+  const void* kernel = reinterpret_cast<const void*>(
+      bloom_probe_kernel<SHARED, WORD_STORE>);
+  const size_t smem = SHARED ? static_cast<size_t>(m_bits) / 8 : 0;
+  cudaError_t err = repro::allow_shared(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = repro::wave_blocks(kernel, kProbeThreads, smem, n / 4);
+  bloom_probe_kernel<SHARED, WORD_STORE>
+      <<<blocks, kProbeThreads, smem, s>>>(
+          keys, n, words, m_bits / 32, k, seed1, seed2, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool SHARED>
+int dispatch_probe(const int* keys, long long n, const unsigned* words,
+                   int m_bits, int k, uint32_t seed1, uint32_t seed2,
+                   unsigned char* out, cudaStream_t s) {
+  const uintptr_t head = ((16 - (reinterpret_cast<uintptr_t>(keys) & 15)) &
+                          15) / 4;
+  const bool word_store = ((reinterpret_cast<uintptr_t>(out) + head) & 3) == 0;
+  return word_store ? launch_probe<SHARED, true>(keys, n, words, m_bits, k,
+                                                 seed1, seed2, out, s)
+                    : launch_probe<SHARED, false>(keys, n, words, m_bits, k,
+                                                  seed1, seed2, out, s);
 }
 
 }  // namespace
@@ -102,16 +237,16 @@ extern "C" int repro_bloom_build(const void* keys, const void* valid,
 }
 
 // keys: (n,) int32, n >= 1; words: (m_bits / 32,) uint32; out: (n,) bool.
+// shared: stage the filter in shared memory (m_bits / 8 bytes must fit).
 extern "C" int repro_bloom_probe(const void* keys, long long n,
                                  const void* words, int m_bits, int k,
                                  unsigned int seed1, unsigned int seed2,
-                                 void* out, void* stream) {
-  const int blocks = repro::grid_stride_blocks(n, kThreads, kBlocksPerSm);
-  bloom_probe_kernel<<<blocks, kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(keys), n,
-      static_cast<const unsigned int*>(words),
-      static_cast<uint32_t>(m_bits - 1), k, seed1, seed2,
-      static_cast<unsigned char*>(out));
-  return static_cast<int>(cudaGetLastError());
+                                 int shared, void* out, void* stream) {
+  const auto* kp = static_cast<const int*>(keys);
+  const auto* w = static_cast<const unsigned*>(words);
+  auto* o = static_cast<unsigned char*>(out);
+  auto s = static_cast<cudaStream_t>(stream);
+  return shared ? dispatch_probe<true>(kp, n, w, m_bits, k, seed1, seed2, o, s)
+                : dispatch_probe<false>(kp, n, w, m_bits, k, seed1, seed2, o,
+                                        s);
 }

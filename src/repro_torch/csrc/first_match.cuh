@@ -148,12 +148,4 @@ inline int probe_blocks_per_row(const void* kernel, size_t smem_bytes,
   return per_row < 1 ? 1 : static_cast<int>(per_row);
 }
 
-// Shared memory above the default 48 KB needs the kernel's opt-in first.
-inline cudaError_t allow_shared(const void* kernel, size_t smem_bytes) {
-  if (smem_bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem_bytes));
-}
-
 }  // namespace repro

@@ -25,4 +25,26 @@ inline int grid_stride_blocks(long long n, int threads, int blocks_per_sm) {
   return static_cast<int>(want < cap ? want : cap);
 }
 
+// Blocks of `threads` for a one-wave grid over `work` items, one item a
+// thread: at most as many blocks of `kernel` as are resident on the card
+// at once with `smem_bytes` of dynamic shared memory each, and at least 1.
+inline int wave_blocks(const void* kernel, int threads, size_t smem_bytes,
+                       long long work) {
+  int resident = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel, threads,
+                                                smem_bytes);
+  const long long cap =
+      static_cast<long long>(sm_count()) * (resident > 0 ? resident : 1);
+  const long long want = (work + threads - 1) / threads;
+  return static_cast<int>(want < 1 ? 1 : (want < cap ? want : cap));
+}
+
+// Shared memory above the default 48 KB needs the kernel's opt-in first.
+inline cudaError_t allow_shared(const void* kernel, size_t smem_bytes) {
+  if (smem_bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem_bytes));
+}
+
 }  // namespace repro

@@ -2,22 +2,36 @@
 //
 // Replaces the TPU kernel src/repro/kernels/partition_hist.py
 // (partition_hist / _hist_kernel): counts[k] = #{i : dest[i] == k}, rows with
-// dest < 0 (invalid) or dest >= nd ignored.
+// dest < 0 (invalid) or dest >= nd ignored, and, where a validity mask is
+// given, rows whose mask byte is 0 ignored too (the reference's
+// where(valid, dest, -1) fused into the read).
 //
-// Bound on this card: bytes. It reads 4n bytes and writes 4nd, with one
-// compare per element, so the memory rate bounds it. The TPU version built a
-// (tile, nd) one-hot matrix and summed its columns because the TPU lacks a
-// scatter; Hopper has fast shared-memory atomics, so this kernel scatters
-// directly instead of doing nd compares per row:
-//  * a grid-stride loop keeps a few blocks per SM streaming coalesced loads;
-//    the loop bound is the same for every lane of a warp, so the warp stays
-//    converged for the vote below;
-//  * each block counts into private shared-memory bins (nd <= 12288 ints fit
-//    in 48 KB) and merges them into the output with one atomicAdd per bin;
-//  * within a warp, lanes with the same destination are merged first
-//    (__match_any_sync), so a small nd (the main path's nd = p = 8) does
-//    not serialise 32 lanes on a handful of shared addresses;
-//  * above 12288 bins the atomics go straight to global memory.
+// Bound on this card: bytes. It reads 4n bytes of destinations (5n with the
+// mask) and writes 4nd, with a few integer operations per element, so the
+// memory rate bounds it. The TPU version built a (tile, nd) one-hot matrix
+// and summed its columns because the TPU lacks a scatter. Here every branch
+// streams the destinations with 16-byte loads (int4; the mask as one 32-bit
+// word or four bytes) over a one-wave grid, with a scalar head and tail for
+// views that start off a 16-byte boundary or end mid-vector:
+//  * registers (nd <= 16, the main path's nd = p = 8): each thread counts in
+//    packed 8-bit lanes, four to a 32-bit word (an element costs a compare,
+//    a shift and an add; words are indexed only by constants, so nothing
+//    goes to local memory), and widens them to 32-bit totals every
+//    kFlushIters pairs of vectors, before a lane can pass 255. Totals are
+//    reduced across the warp (__reduce_add_sync per bin) and the block
+//    (shared memory);
+//  * shared (16 < nd <= 12288): per-block bins in shared memory; lanes of a
+//    warp with the same destination are merged first (__match_any_sync),
+//    so a hot destination does not serialise 32 lanes on one address;
+//  * global (nd > 12288): the same warp-merged atomics straight into the
+//    accumulator in device memory.
+// One launch per call, with no fill: every block adds its counts into an
+// accumulator that is zero between calls, then takes a ticket; the block
+// that takes the last ticket moves the accumulator into `out`, zeroing it
+// and the ticket as it goes. The wrapper keeps one accumulator per CUDA
+// stream, so calls in flight on two streams never share one.
+
+#include <cstdint>
 
 #include <cuda_runtime.h>
 
@@ -25,68 +39,299 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxSharedBins = 12288;  // 48 KB of int bins
-constexpr int kBlocksPerSm = 8;
+constexpr int kThreads = 512;
+constexpr int kMaxRegisterBins = 16;    // four words of four 8-bit lanes
+constexpr int kMaxSharedBins = 12288;   // 48 KB of int bins
+// Pairs of vectors a thread counts between flushes: each pair adds at most
+// 8 to a lane, and 31 * 8 = 248 <= 255.
+constexpr int kFlushIters = 31;
 
-// Every lane of the warp calls this; key < 0 marks a lane with nothing to add.
-__device__ __forceinline__ void add_warp_aggregated(int* bins, int key) {
+// Mask layouts: none; one aligned 32-bit word per vector; four bytes.
+constexpr int kNoMask = 0, kMaskWord = 1, kMaskBytes = 2;
+
+// Elements before the first 16-byte boundary of dest, and the split of the
+// rest into whole vectors and a tail.
+struct Split {
+  long long head, nvec, tail_start;
+};
+
+__device__ __forceinline__ Split split(const int* dest, long long n) {
+  const long long off = (reinterpret_cast<uintptr_t>(dest) & 15) >> 2;
+  Split s;
+  s.head = off ? 4 - off : 0;
+  if (s.head > n) s.head = n;
+  s.nvec = (n - s.head) >> 2;
+  s.tail_start = s.head + 4 * s.nvec;
+  return s;
+}
+
+// Destination of element i as unsigned, ~0u where the mask clears it.
+template <int MASK>
+__device__ __forceinline__ unsigned scalar_dest(
+    const int* __restrict__ dest, const unsigned char* __restrict__ valid,
+    long long i) {
+  const unsigned d = static_cast<unsigned>(dest[i]);
+  if (MASK != kNoMask && !valid[i]) return ~0u;
+  return d;
+}
+
+// The four destinations of vector j (elements head + 4j ..), masked.
+template <int MASK>
+__device__ __forceinline__ void vector_dest(
+    const int* __restrict__ dest, const unsigned char* __restrict__ valid,
+    const Split& s, long long j, unsigned (&u)[4]) {
+  const long long i = s.head + 4 * j;
+  const int4 x = __ldg(reinterpret_cast<const int4*>(dest + i));
+  u[0] = static_cast<unsigned>(x.x);
+  u[1] = static_cast<unsigned>(x.y);
+  u[2] = static_cast<unsigned>(x.z);
+  u[3] = static_cast<unsigned>(x.w);
+  if (MASK == kMaskWord) {
+    const unsigned m = __ldg(reinterpret_cast<const unsigned*>(valid + i));
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (!((m >> (8 * e)) & 0xFFu)) u[e] = ~0u;
+    }
+  } else if (MASK == kMaskBytes) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (!__ldg(valid + i + e)) u[e] = ~0u;
+    }
+  }
+}
+
+// Adds one element to the packed 8-bit lanes: bin u goes to lane u & 3 of
+// word u >> 2; u >= nd (negative destinations included, as unsigned) adds
+// nothing and shifts nothing.
+template <int NW>
+__device__ __forceinline__ void count_packed(unsigned (&c)[NW], unsigned u,
+                                             unsigned nd) {
+  if constexpr (NW <= 2) {
+    const unsigned inc = u < nd ? 1u << ((u & 3u) << 3) : 0u;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      if ((u >> 2) == static_cast<unsigned>(w)) c[w] += inc;
+    }
+  } else {
+    // With four words the compiler turns the compare chain above into a
+    // store to a stack array indexed by u >> 2; a lane offset of its own
+    // for every word keeps each word in a register.
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      const unsigned t = u - 4u * w;
+      c[w] += (t < 4u && u < nd) ? 1u << (t << 3) : 0u;
+    }
+  }
+}
+
+template <int NW>
+__device__ __forceinline__ void flush_packed(unsigned (&c)[NW],
+                                             unsigned (&tot)[4 * NW]) {
+#pragma unroll
+  for (int w = 0; w < NW; ++w) {
+#pragma unroll
+    for (int l = 0; l < 4; ++l) tot[4 * w + l] += (c[w] >> (8 * l)) & 0xFFu;
+    c[w] = 0;
+  }
+}
+
+// Every block calls this once, after its last add into acc: the block that
+// takes the last ticket moves acc[0, nd) into out and leaves acc and the
+// ticket zero for the next call on the stream.
+__device__ __forceinline__ void finish(int* __restrict__ acc,
+                                       unsigned* __restrict__ ticket, int nd,
+                                       int* __restrict__ out) {
+  __shared__ bool last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int k = threadIdx.x; k < nd; k += blockDim.x) {
+    out[k] = atomicExch(&acc[k], 0);
+  }
+  if (threadIdx.x == 0) atomicExch(ticket, 0u);
+}
+
+template <int NW, int MASK>
+__global__ void __launch_bounds__(kThreads)
+    hist_registers(const int* __restrict__ dest,
+                   const unsigned char* __restrict__ valid, long long n,
+                   int nd, int* __restrict__ acc,
+                   unsigned* __restrict__ ticket, int* __restrict__ out) {
+  __shared__ unsigned warp_tot[kThreads / 32][4 * NW];
+  const Split s = split(dest, n);
+  const long long gid =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  const unsigned und = static_cast<unsigned>(nd);
+
+  unsigned c[NW], tot[4 * NW];
+#pragma unroll
+  for (int w = 0; w < NW; ++w) c[w] = 0;
+#pragma unroll
+  for (int b = 0; b < 4 * NW; ++b) tot[b] = 0;
+
+  // The head (elements before the first 16-byte boundary) and the tail.
+  if (gid < s.head) {
+    count_packed<NW>(c, scalar_dest<MASK>(dest, valid, gid), und);
+  }
+  if (gid < n - s.tail_start) {
+    count_packed<NW>(c, scalar_dest<MASK>(dest, valid, s.tail_start + gid),
+                     und);
+  }
+  // Two vectors in flight per thread: j and j + stride.
+  for (long long j = gid; j < s.nvec;) {
+#pragma unroll 1
+    for (int it = 0; it < kFlushIters && j < s.nvec; ++it, j += 2 * stride) {
+      unsigned u[4], w[4] = {~0u, ~0u, ~0u, ~0u};
+      vector_dest<MASK>(dest, valid, s, j, u);
+      if (j + stride < s.nvec) {
+        vector_dest<MASK>(dest, valid, s, j + stride, w);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        count_packed<NW>(c, u[e], und);
+        count_packed<NW>(c, w[e], und);
+      }
+    }
+    flush_packed<NW>(c, tot);
+  }
+  flush_packed<NW>(c, tot);
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int b = 0; b < 4 * NW; ++b) {
+    const unsigned sum = __reduce_add_sync(0xffffffffu, tot[b]);
+    if (lane == 0) warp_tot[warp][b] = sum;
+  }
+  __syncthreads();
+  if (threadIdx.x < nd) {
+    unsigned sum = 0;
+    for (int w = 0; w < kThreads / 32; ++w) sum += warp_tot[w][threadIdx.x];
+    if (sum) atomicAdd(&acc[threadIdx.x], static_cast<int>(sum));
+  }
+  finish(acc, ticket, nd, out);
+}
+
+// Every lane of the warp calls this; key ~0u (or >= nd) adds nothing.
+__device__ __forceinline__ void add_warp_aggregated(int* bins, unsigned key,
+                                                    unsigned nd) {
   const unsigned peers = __match_any_sync(0xffffffffu, key);
   const int leader = __ffs(peers) - 1;
-  if (key >= 0 && static_cast<int>(threadIdx.x & 31) == leader) {
+  if (key < nd && static_cast<int>(threadIdx.x & 31) == leader) {
     atomicAdd(&bins[key], __popc(peers));
   }
 }
 
-// Destination of element i, or -1 past the end or outside [0, nd).
-__device__ __forceinline__ int load_key(const int* __restrict__ dest,
-                                        long long i, long long n, int nd) {
-  if (i >= n) return -1;
-  const int d = dest[i];
-  return (d >= 0 && d < nd) ? d : -1;
-}
-
-__global__ void hist_shared_bins(const int* __restrict__ dest, long long n,
-                                 int nd, int* __restrict__ out) {
-  extern __shared__ int bins[];
-  for (int k = threadIdx.x; k < nd; k += blockDim.x) bins[k] = 0;
-  __syncthreads();
+// SHARED: per-block bins in shared memory, merged into acc; else the adds
+// go to acc directly. The vector loop's bound is the same for every lane
+// of a block, so each warp stays converged for the vote.
+template <bool SHARED, int MASK>
+__global__ void __launch_bounds__(kThreads)
+    hist_bins(const int* __restrict__ dest,
+              const unsigned char* __restrict__ valid, long long n, int nd,
+              int* __restrict__ acc, unsigned* __restrict__ ticket,
+              int* __restrict__ out) {
+  extern __shared__ int shared_bins[];
+  int* bins = SHARED ? shared_bins : acc;
+  if (SHARED) {
+    for (int k = threadIdx.x; k < nd; k += blockDim.x) bins[k] = 0;
+    __syncthreads();
+  }
+  const Split s = split(dest, n);
+  const unsigned und = static_cast<unsigned>(nd);
+  if (blockIdx.x == 0 && threadIdx.x < 32) {  // head in lanes 0-3, tail 4-7
+    const long long lane = threadIdx.x;
+    unsigned key = ~0u;
+    if (lane < s.head) key = scalar_dest<MASK>(dest, valid, lane);
+    if (lane >= 4 && lane - 4 < n - s.tail_start) {
+      key = scalar_dest<MASK>(dest, valid, s.tail_start + lane - 4);
+    }
+    add_warp_aggregated(bins, key, und);
+  }
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long base = static_cast<long long>(blockIdx.x) * blockDim.x;
-       base < n; base += stride) {
-    add_warp_aggregated(bins, load_key(dest, base + threadIdx.x, n, nd));
+       base < s.nvec; base += stride) {
+    const long long j = base + threadIdx.x;
+    unsigned u[4] = {~0u, ~0u, ~0u, ~0u};
+    if (j < s.nvec) vector_dest<MASK>(dest, valid, s, j, u);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) add_warp_aggregated(bins, u[e], und);
   }
-  __syncthreads();
-  for (int k = threadIdx.x; k < nd; k += blockDim.x) {
-    const int c = bins[k];
-    if (c != 0) atomicAdd(&out[k], c);
+  if (SHARED) {
+    __syncthreads();
+    for (int k = threadIdx.x; k < nd; k += blockDim.x) {
+      const int c = bins[k];
+      if (c != 0) atomicAdd(&acc[k], c);
+    }
   }
+  finish(acc, ticket, nd, out);
 }
 
-__global__ void hist_global_bins(const int* __restrict__ dest, long long n,
-                                 int nd, int* __restrict__ out) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long base = static_cast<long long>(blockIdx.x) * blockDim.x;
-       base < n; base += stride) {
-    add_warp_aggregated(out, load_key(dest, base + threadIdx.x, n, nd));
+// Launches a one-wave grid of Kernel over the n / 4 vectors.
+template <auto Kernel>
+int launch(size_t smem, const int* d, const unsigned char* v, long long n,
+           int nd, int* acc, unsigned* ticket, int* out, cudaStream_t s) {
+  const void* kernel = reinterpret_cast<const void*>(Kernel);
+  if (smem) {  // the kernel's static shared memory comes on top
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
+  const int blocks = repro::wave_blocks(kernel, kThreads, smem, n / 4);
+  Kernel<<<blocks, kThreads, smem, s>>>(d, v, n, nd, acc, ticket, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int MASK>
+int dispatch(const int* d, const unsigned char* v, long long n, int nd,
+             int* acc, unsigned* ticket, int* out, cudaStream_t s) {
+  if (nd <= 4) {
+    return launch<hist_registers<1, MASK>>(0, d, v, n, nd, acc, ticket, out,
+                                           s);
+  }
+  if (nd <= 8) {
+    return launch<hist_registers<2, MASK>>(0, d, v, n, nd, acc, ticket, out,
+                                           s);
+  }
+  if (nd <= kMaxRegisterBins) {
+    return launch<hist_registers<4, MASK>>(0, d, v, n, nd, acc, ticket, out,
+                                           s);
+  }
+  if (nd <= kMaxSharedBins) {
+    return launch<hist_bins<true, MASK>>(nd * sizeof(int), d, v, n, nd, acc,
+                                         ticket, out, s);
+  }
+  return launch<hist_bins<false, MASK>>(0, d, v, n, nd, acc, ticket, out, s);
 }
 
 }  // namespace
 
-// dest: (n,) int32; out: (nd,) int32, zeroed by the caller; n >= 1, nd >= 1.
-extern "C" int repro_partition_hist(const void* dest, long long n, int nd,
+// dest: (n,) int32, n >= 1; valid: (n,) bool or null; nd >= 1; workspace:
+// (nd + 1,) int32, zero, used by no call in flight on another stream
+// (ticket first, then the accumulator), left zero; out: (nd,) int32.
+extern "C" int repro_partition_hist(const void* dest, const void* valid,
+                                    long long n, int nd, void* workspace,
                                     void* out, void* stream) {
-  const int blocks = repro::grid_stride_blocks(n, kThreads, kBlocksPerSm);
   auto s = static_cast<cudaStream_t>(stream);
   const int* d = static_cast<const int*>(dest);
+  const auto* v = static_cast<const unsigned char*>(valid);
+  auto* ticket = static_cast<unsigned*>(workspace);
+  int* acc = static_cast<int*>(workspace) + 1;
   int* o = static_cast<int*>(out);
-  if (nd <= kMaxSharedBins) {
-    hist_shared_bins<<<blocks, kThreads, nd * sizeof(int), s>>>(d, n, nd, o);
-  } else {
-    hist_global_bins<<<blocks, kThreads, 0, s>>>(d, n, nd, o);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (v == nullptr) return dispatch<kNoMask>(d, v, n, nd, acc, ticket, o, s);
+  // The mask's bytes of the first whole vector start on a 4-byte boundary
+  // exactly when the two pointers share their phase.
+  const uintptr_t head_bytes =
+      (16 - (reinterpret_cast<uintptr_t>(d) & 15)) & 15;
+  const bool word_aligned =
+      ((reinterpret_cast<uintptr_t>(v) + head_bytes / 4) & 3) == 0;
+  return word_aligned
+             ? dispatch<kMaskWord>(d, v, n, nd, acc, ticket, o, s)
+             : dispatch<kMaskBytes>(d, v, n, nd, acc, ticket, o, s);
 }
 
 extern "C" const char* repro_error_string(int err) {

@@ -91,8 +91,8 @@ def _exchange_by_dest(table: Table, dest: torch.Tensor, pair_cap: int,
     src_ids = torch.arange(p, dtype=torch.int32, device=dest.device)[:, None]
     moved = (table.valid & (dest != src_ids)).sum()
     stayed = (table.valid & (dest == src_ids)).sum()
-    loads = partition_hist(
-        torch.where(table.valid, dest, -1).reshape(-1), nd=p)
+    loads = partition_hist(dest.reshape(-1).contiguous(), nd=p,
+                           valid=table.valid.reshape(-1).contiguous())
     rb = table.row_bytes
     report = ExchangeReport(
         kind,

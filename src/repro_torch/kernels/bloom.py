@@ -11,6 +11,11 @@ The words are an int32 tensor holding the reference's uint32 bit patterns
 (``payload_from_numpy`` converts). On CUDA tensors the wrappers launch
 ``csrc/bloom.cu``; on CPU tensors they run the plain versions in
 ``ref.py``.
+
+The probe kernel stages the filter in each block's shared memory where it
+fits (``filter_fits_shared``: m_bits / 8 bytes within 227 KB, so m_bits <=
+2^20) and reads it from device memory otherwise; the wrapper chooses by
+size and counts launches by branch in ``bloom_probe.filter_launches``.
 """
 
 from __future__ import annotations
@@ -21,6 +26,16 @@ from . import ref
 from .build import check, library
 from .launch import cuda_stream, flat_keys, flat_valid, require_kernel_input
 from .ref import BLOOM_SEED_1, BLOOM_SEED_2
+
+#: Dynamic shared memory one block may use on an H100 after the kernel's
+#: opt-in (227 KB); larger filters are read from device memory.
+SHARED_FILTER_BYTES = 232_448
+
+
+def filter_fits_shared(m_bits: int) -> bool:
+    """Whether an ``m_bits``-bit filter fits in one block's shared
+    memory."""
+    return m_bits // 8 <= SHARED_FILTER_BYTES
 
 
 def bloom_build(keys: torch.Tensor, valid: torch.Tensor | None = None, *,
@@ -68,14 +83,18 @@ def bloom_probe(keys: torch.Tensor, words: torch.Tensor, *, k: int
     out = torch.empty(flat.shape, dtype=torch.bool, device=flat.device)
     if not flat.numel():
         return out.reshape(keys.shape)
+    shared = filter_fits_shared(m_bits)
     with cuda_stream(flat) as stream:
         err = library().repro_bloom_probe(
             flat.data_ptr(), flat.numel(), words.data_ptr(), m_bits, k,
-            BLOOM_SEED_1, BLOOM_SEED_2, out.data_ptr(), stream)
+            BLOOM_SEED_1, BLOOM_SEED_2, int(shared), out.data_ptr(), stream)
     check(err, "bloom_probe")
     bloom_probe.launches += 1
+    bloom_probe.filter_launches["shared" if shared else "device"] += 1
     return out.reshape(keys.shape)
 
 
 bloom_build.launches = 0  # type: ignore[attr-defined]
 bloom_probe.launches = 0  # type: ignore[attr-defined]
+#: Launches by where the filter lay: shared memory or device memory.
+bloom_probe.filter_launches = {"shared": 0, "device": 0}  # type: ignore

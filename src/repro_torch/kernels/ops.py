@@ -35,9 +35,11 @@ def probe3(a1_keys: torch.Tensor, a2_keys: torch.Tensor,
     return tiled_probe3(a1_keys, a2_keys, b_keys, c_keys)
 
 
-def hist(dest: torch.Tensor, nd: int) -> torch.Tensor:
-    """Partition-destination histogram (skew/capacity statistics)."""
-    return partition_hist(dest, nd=nd)
+def hist(dest: torch.Tensor, nd: int,
+         valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Partition-destination histogram (skew/capacity statistics) of the
+    rows whose ``valid`` is True (every row where it is None)."""
+    return partition_hist(dest, nd=nd, valid=valid)
 
 
 def sort_pairs(keys: torch.Tensor, values: torch.Tensor):

@@ -1,9 +1,19 @@
 """partition_hist — histogram of shuffle/radix destinations.
 
-counts[k] = #{i : dest[i] == k}; rows with dest < 0 are not counted. Used on
+counts[k] = #{i : dest[i] == k}; rows with dest < 0 or dest >= nd are not
+counted, nor, where ``valid`` is given, rows whose mask is False. Used on
 every shuffle to measure the hottest destination's load (the straggler
-bytes). On a CUDA tensor it launches ``csrc/partition_hist.cu``; on a CPU
-tensor it runs the plain version in ``ref.py``.
+bytes). On a CUDA tensor it launches ``csrc/partition_hist.cu`` once; on a
+CPU tensor it runs the plain version in ``ref.py``.
+
+The kernel has three branches, chosen here by ``nd`` alone
+(``hist_branch``) and counted in ``partition_hist.branch_launches``:
+per-thread packed counters in registers for nd <= 16, per-block bins in
+shared memory for nd <= 12,288, and atomics into device memory beyond.
+Every block adds its counts into an accumulator that the last block to
+finish moves into the output and leaves zero, so a call is one launch with
+no fill. The accumulator and its ticket live in a workspace kept per CUDA
+stream (``_workspace``): calls in flight on two streams never share one.
 """
 
 from __future__ import annotations
@@ -14,26 +24,69 @@ from . import ref
 from .build import check, library
 from .launch import cuda_stream, require_kernel_input
 
+#: Largest nd counted in registers (four words of four 8-bit lanes) and in
+#: shared memory (48 KB of int bins).
+MAX_REGISTER_BINS = 16
+MAX_SHARED_BINS = 12_288
 
-def partition_hist(dest: torch.Tensor, *, nd: int) -> torch.Tensor:
-    """counts[k] = #{i : dest[i] == k} as int32 (nd,); dest < 0 ignored."""
+
+def hist_branch(nd: int) -> str:
+    """The kernel branch that counts ``nd`` bins."""
+    if nd <= MAX_REGISTER_BINS:
+        return "registers"
+    return "shared" if nd <= MAX_SHARED_BINS else "global"
+
+
+#: (device index, stream handle) -> int32 workspace: the ticket, then the
+#: accumulator; zero between calls on that stream.
+_workspaces: dict = {}
+
+
+def _workspace(device: torch.device, stream: int, nd: int) -> torch.Tensor:
+    key = (device.index, stream)
+    ws = _workspaces.get(key)
+    if ws is None or ws.numel() < nd + 1:
+        # Zeroed once; the kernel leaves it zero. The old one is released
+        # to the allocator on this stream, after the work queued on it.
+        ws = torch.zeros(max(nd, MAX_REGISTER_BINS) + 1, dtype=torch.int32,
+                         device=device)
+        _workspaces[key] = ws
+    return ws
+
+
+def partition_hist(dest: torch.Tensor, *, nd: int,
+                   valid: torch.Tensor | None = None) -> torch.Tensor:
+    """counts[k] = #{i : dest[i] == k and valid[i]} as int32 (nd,); dest < 0
+    or >= nd ignored; ``valid`` (bool, dest's shape) None counts every row.
+    """
     if dest.dtype != torch.int32:
         raise TypeError("partition_hist expects int32 destinations")
     if dest.dim() != 1:
         raise ValueError(f"partition_hist expects a 1-D tensor, got shape "
                          f"{tuple(dest.shape)}")
-    if dest.device.type == "cpu":
-        return ref.partition_hist_ref(dest, nd)
-    require_kernel_input("partition_hist", dest)
-    out = torch.zeros(max(nd, 0), dtype=torch.int32, device=dest.device)
+    if valid is not None and (valid.dtype != torch.bool
+                              or valid.shape != dest.shape):
+        raise ValueError("partition_hist expects a bool mask of dest's shape")
+    if dest.device.type == "cpu" and (valid is None
+                                      or valid.device.type == "cpu"):
+        return ref.partition_hist_ref(dest, nd, valid)
+    require_kernel_input("partition_hist", dest,
+                         *(() if valid is None else (valid,)))
     if dest.numel() == 0 or nd <= 0:
-        return out
+        return torch.zeros(max(nd, 0), dtype=torch.int32, device=dest.device)
+    out = torch.empty(nd, dtype=torch.int32, device=dest.device)
     with cuda_stream(dest) as stream:
+        ws = _workspace(dest.device, stream, nd)
         err = library().repro_partition_hist(
-            dest.data_ptr(), dest.numel(), nd, out.data_ptr(), stream)
+            dest.data_ptr(), None if valid is None else valid.data_ptr(),
+            dest.numel(), nd, ws.data_ptr(), out.data_ptr(), stream)
     check(err, "partition_hist")
     partition_hist.launches += 1
+    partition_hist.branch_launches[hist_branch(nd)] += 1
     return out
 
 
 partition_hist.launches = 0  # type: ignore[attr-defined]
+#: Launches by kernel branch (``hist_branch``).
+partition_hist.branch_launches = {  # type: ignore[attr-defined]
+    "registers": 0, "shared": 0, "global": 0}

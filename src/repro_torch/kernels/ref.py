@@ -18,10 +18,13 @@ INT32_MAX = torch.iinfo(torch.int32).max
 _PROBE_BLOCK = 1 << 24
 
 
-def partition_hist_ref(dest: torch.Tensor, nd: int) -> torch.Tensor:
+def partition_hist_ref(dest: torch.Tensor, nd: int,
+                       valid: torch.Tensor | None = None) -> torch.Tensor:
     """counts[k] = #{i : dest[i] == k} as int32 (nd,); dest < 0 or >= nd
-    ignored."""
+    ignored, and rows whose ``valid`` is False where it is given."""
     keep = (dest >= 0) & (dest < nd)
+    if valid is not None:
+        keep &= valid
     d = dest[keep].to(torch.int64)
     out = torch.zeros(nd, dtype=torch.int32, device=dest.device)
     return out.index_add_(0, d, torch.ones_like(d, dtype=torch.int32))

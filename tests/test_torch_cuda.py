@@ -20,8 +20,9 @@ from repro_torch.joins.ref import rows_as_set, rows_close
 from repro_torch.joins.slots import BUCKET_SEED, SHUFFLE_SEED
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.bitonic_sort import bitonic_sort_tile
-from repro_torch.kernels.bloom import bloom_build, bloom_probe
-from repro_torch.kernels.partition_hist import partition_hist
+from repro_torch.kernels.bloom import (bloom_build, bloom_probe,
+                                       filter_fits_shared)
+from repro_torch.kernels.partition_hist import hist_branch, partition_hist
 from repro_torch.kernels.tiled_probe import (tiled_probe, tiled_probe3,
                                              tables_fit_shared)
 from repro_torch.kernels.zone_map import key_range
@@ -41,13 +42,84 @@ def on(dev, a):
 
 
 @pytest.mark.parametrize("n,nd", [(0, 4), (31, 8), (100_003, 128),
-                                  (3_000_000, 8), (50_000, 20000)])
+                                  (3_000_000, 8), (50_000, 20000),
+                                  (1_000_003, 1), (1_000_003, 16),
+                                  (1_000_003, 17), (1_000_003, 12288),
+                                  (1_000_003, 12289), (1_000_003, 20000)])
 def test_hist_equals_plain(cuda, n, nd):
     d = on(cuda, np.random.default_rng(n).integers(-1, nd + 2, n).astype(
         np.int32))
     before = ops.launch_counts()["partition_hist"]
     assert torch.equal(partition_hist(d, nd=nd), ref.partition_hist_ref(d, nd))
     assert ops.launch_counts()["partition_hist"] == before + (n > 0)
+
+
+# Every branch of the kernel (registers nd <= 16, shared <= 12288, global
+# beyond), with and without the mask, on views that start 0-3 elements
+# past an aligned base (dest and mask independently) and lengths that are
+# not a multiple of 4.
+@pytest.mark.parametrize("nd", [1, 8, 16, 17, 12288, 12289, 20000])
+def test_hist_masked_views_equal_plain(cuda, nd):
+    rng = np.random.default_rng(nd)
+    d = on(cuda, rng.integers(-1, nd + 2, 200_011).astype(np.int32))
+    v = on(cuda, rng.random(200_011) < 0.7)
+    branch = hist_branch(nd)
+    before = partition_hist.branch_launches[branch]
+    calls = 0
+    for d0, v0, n in ((0, 0, 200_000), (1, 1, 199_999), (3, 0, 100_001),
+                      (2, 3, 150_002), (1, 2, 7), (3, 3, 2)):
+        dv, vv = d[d0:d0 + n], v[v0:v0 + n]
+        assert torch.equal(partition_hist(dv, nd=nd, valid=vv),
+                           ref.partition_hist_ref(dv, nd, vv)), (d0, v0, n)
+        assert torch.equal(partition_hist(dv, nd=nd),
+                           ref.partition_hist_ref(dv, nd)), (d0, v0, n)
+        calls += 2
+    assert partition_hist.branch_launches[branch] == before + calls
+
+
+@pytest.mark.parametrize("nd", [8, 17, 20000])
+def test_hist_all_invalid_and_one_bin(cuda, nd):
+    n = 1_000_001
+    d = torch.full((n,), nd - 1, dtype=torch.int32, device=cuda)
+    none = torch.zeros(n, dtype=torch.bool, device=cuda)
+    assert int(partition_hist(d, nd=nd, valid=none).sum()) == 0
+    assert int(partition_hist(torch.full_like(d, -1), nd=nd).sum()) == 0
+    got = partition_hist(d, nd=nd)
+    assert int(got[nd - 1]) == n and int(got.sum()) == n
+
+
+# Long per-thread runs, all in one bin: the packed 8-bit lanes must flush
+# to their 32-bit totals before they overflow.
+@pytest.mark.parametrize("n", [2 ** 31 // 64, 2 ** 28 + 3])
+def test_hist_packed_counters_flush(cuda, n):
+    for bin_ in (0, 7):
+        d = torch.full((n,), bin_, dtype=torch.int32, device=cuda)
+        got = partition_hist(d, nd=8)
+        assert int(got[bin_]) == n and int(got.sum()) == n
+        del d
+    d = torch.randint(-1, 9, (n,), dtype=torch.int32, device=cuda)
+    v = torch.rand(n, device=cuda) < 0.9
+    assert torch.equal(partition_hist(d, nd=8, valid=v),
+                       ref.partition_hist_ref(d, 8, v))
+
+
+# Calls in flight on two streams at once, each with its own accumulator.
+@pytest.mark.parametrize("nd", [8, 17, 20000])
+def test_hist_two_streams_at_once(cuda, nd):
+    rng = np.random.default_rng(nd + 1)
+    inputs = [on(cuda, rng.integers(-1, nd + 1, 4_000_000).astype(np.int32))
+              for _ in range(2)]
+    want = [ref.partition_hist_ref(d, nd) for d in inputs]
+    streams = [torch.cuda.Stream() for _ in inputs]
+    torch.cuda.synchronize()
+    got = [[], []]
+    for _ in range(20):
+        for i, (s, d) in enumerate(zip(streams, inputs)):
+            with torch.cuda.stream(s):
+                got[i].append(partition_hist(d, nd=nd))
+    torch.cuda.synchronize()
+    for i in range(2):
+        assert all(torch.equal(g, want[i]) for g in got[i])
 
 
 def _chip_smoke():
@@ -169,7 +241,8 @@ def filter_keys(n, seed, shape=None):
 @pytest.mark.parametrize("n,shape", [(0, None), (1, None), (31, None),
                                      (100_003, None), (3_000_000, (8, -1))])
 @pytest.mark.parametrize("m_bits,k", [(32, 1), (256, 7), (65536, 8),
-                                      (1 << 20, 8)])
+                                      (1 << 20, 8), (1 << 21, 8),
+                                      (1 << 22, 3)])
 def test_bloom_pair_equals_plain(cuda, n, shape, m_bits, k):
     keys, valid = filter_keys(n, n + m_bits, shape)
     kc, vc = on(cuda, keys), on(cuda, valid)
@@ -181,6 +254,30 @@ def test_bloom_pair_equals_plain(cuda, n, shape, m_bits, k):
     assert torch.equal(keep.reshape(-1),
                        ref.bloom_probe_ref(kc.reshape(-1), words, k))
     assert bool(keep[vc].all())
+
+
+# Both filter branches (shared memory up to 2^20 bits, device memory
+# above), k = 1..8, keys that all pass (the build's own), that all fail
+# (the empty filter), and views 0-3 keys past an aligned base.
+@pytest.mark.parametrize("m_bits", [1 << 16, 1 << 20, 1 << 21, 1 << 22])
+def test_bloom_probe_branches_and_edges(cuda, m_bits):
+    rng = np.random.default_rng(m_bits)
+    keys = on(cuda, rng.integers(-(2 ** 31), 2 ** 31 - 1, 300_007,
+                                 dtype=np.int64).astype(np.int32))
+    branch = "shared" if filter_fits_shared(m_bits) else "device"
+    before = bloom_probe.filter_launches[branch]
+    calls = 0
+    empty = torch.zeros(m_bits // 32, dtype=torch.int32, device=cuda)
+    for k in range(1, 9):
+        words = bloom_build(keys[:20_000], m_bits=m_bits, k=k)
+        for off in range(4):
+            kv = keys[off:]
+            assert torch.equal(bloom_probe(kv, words, k=k),
+                               ref.bloom_probe_ref(kv, words, k)), (k, off)
+            assert bool(bloom_probe(kv[:20_000 - off], words, k=k).all())
+            assert not bool(bloom_probe(kv, empty, k=k).any())
+            calls += 3
+    assert bloom_probe.filter_launches[branch] == before + calls
 
 
 @pytest.mark.parametrize("n", [0, 1, 31, 1000, 100_003, 3_000_000])
