@@ -368,9 +368,8 @@ def check_kernels_edge_cases(dev) -> None:
 
 
 #: Bin counts that reach every branch of partition_hist and its edges:
-#: registers (nd <= 16, one, two and four packed words), shared memory
-#: (nd <= 12288) and device memory.
-HIST_EDGE_ND = (1, 8, 16, 17, 12288, 12289, 20000)
+#: registers (nd <= 8), shared memory (nd <= 12288) and device memory.
+HIST_EDGE_ND = (1, 8, 9, 16, 17, 12288, 12289, 20000)
 
 
 def check_hist_edge_cases(dev, rng) -> None:
@@ -382,7 +381,9 @@ def check_hist_edge_cases(dev, rng) -> None:
     import torch
 
     from repro_torch.kernels import ref
-    from repro_torch.kernels.partition_hist import partition_hist
+    from repro_torch.kernels.build import library
+    from repro_torch.kernels.partition_hist import (HIST_BRANCHES,
+                                                    partition_hist)
 
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
     branches = dict(partition_hist.branch_launches)
@@ -440,6 +441,16 @@ def check_hist_edge_cases(dev, rng) -> None:
                         for i in range(2) for g in got[i]),
                     f"partition_hist nd={nd} on two streams at once")
             n_cases += 40
+        # The kernel launches the branch it is passed, and refuses the
+        # register branch for more bins than its packed words hold.
+        d = torch.zeros(1000, dtype=torch.int32, device=dev)
+        ws = torch.zeros(10, dtype=torch.int32, device=dev)
+        err = library().repro_partition_hist(
+            d.data_ptr(), None, d.numel(), 9,
+            HIST_BRANCHES.index("registers"), ws.data_ptr(),
+            torch.empty(9, dtype=torch.int32, device=dev).data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+        require(err != 0, "partition_hist register branch took nd=9")
     took = {k: v - branches[k]
             for k, v in partition_hist.branch_launches.items()}
     require(all(v > 0 for v in took.values()),

@@ -39,9 +39,15 @@ inline int wave_blocks(const void* kernel, int threads, size_t smem_bytes,
   return static_cast<int>(want < 1 ? 1 : (want < cap ? want : cap));
 }
 
-// Shared memory above the default 48 KB needs the kernel's opt-in first.
+// Shared memory above the default 48 KB a block, the kernel's static shared
+// memory included, needs the kernel's opt-in to `smem_bytes` of dynamic
+// shared memory first.
 inline cudaError_t allow_shared(const void* kernel, size_t smem_bytes) {
-  if (smem_bytes <= 48 * 1024) return cudaSuccess;
+  if (smem_bytes == 0) return cudaSuccess;
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  if (attr.sharedSizeBytes + smem_bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem_bytes));

@@ -13,18 +13,20 @@
 // streams the destinations with 16-byte loads (int4; the mask as one 32-bit
 // word or four bytes) over a one-wave grid, with a scalar head and tail for
 // views that start off a 16-byte boundary or end mid-vector:
-//  * registers (nd <= 16, the main path's nd = p = 8): each thread counts in
-//    packed 8-bit lanes, four to a 32-bit word (an element costs a compare,
-//    a shift and an add; words are indexed only by constants, so nothing
-//    goes to local memory), and widens them to 32-bit totals every
+//  * registers (nd <= 8, the main path's nd = p): each thread counts in
+//    packed 8-bit lanes, four to a 32-bit word, two words (an element costs
+//    a compare, a shift and an add; words are indexed only by constants, so
+//    nothing goes to local memory), and widens them to 32-bit totals every
 //    kFlushIters pairs of vectors, before a lane can pass 255. Totals are
 //    reduced across the warp (__reduce_add_sync per bin) and the block
 //    (shared memory);
-//  * shared (16 < nd <= 12288): per-block bins in shared memory; lanes of a
-//    warp with the same destination are merged first (__match_any_sync),
-//    so a hot destination does not serialise 32 lanes on one address;
-//  * global (nd > 12288): the same warp-merged atomics straight into the
-//    accumulator in device memory.
+//  * shared: per-block bins in shared memory; lanes of a warp with the same
+//    destination are merged first (__match_any_sync), so a hot destination
+//    does not serialise 32 lanes on one address;
+//  * global: the same warp-merged atomics straight into the accumulator in
+//    device memory.
+// The caller chooses the branch and passes its code (kernels/
+// partition_hist.py, hist_branch); this file launches exactly that one.
 // One launch per call, with no fill: every block adds its counts into an
 // accumulator that is zero between calls, then takes a ticket; the block
 // that takes the last ticket moves the accumulator into `out`, zeroing it
@@ -40,14 +42,17 @@
 namespace {
 
 constexpr int kThreads = 512;
-constexpr int kMaxRegisterBins = 16;    // four words of four 8-bit lanes
-constexpr int kMaxSharedBins = 12288;   // 48 KB of int bins
+constexpr int kWords = 2;  // packed words of four 8-bit lanes
+constexpr int kRegisterBins = 4 * kWords;
 // Pairs of vectors a thread counts between flushes: each pair adds at most
 // 8 to a lane, and 31 * 8 = 248 <= 255.
 constexpr int kFlushIters = 31;
 
 // Mask layouts: none; one aligned 32-bit word per vector; four bytes.
 constexpr int kNoMask = 0, kMaskWord = 1, kMaskBytes = 2;
+
+// Branch codes, in the order of the wrapper's HIST_BRANCHES.
+constexpr int kRegisters = 0, kShared = 1, kGlobal = 2;
 
 // Elements before the first 16-byte boundary of dest, and the split of the
 // rest into whole vectors and a tail.
@@ -103,32 +108,19 @@ __device__ __forceinline__ void vector_dest(
 // Adds one element to the packed 8-bit lanes: bin u goes to lane u & 3 of
 // word u >> 2; u >= nd (negative destinations included, as unsigned) adds
 // nothing and shifts nothing.
-template <int NW>
-__device__ __forceinline__ void count_packed(unsigned (&c)[NW], unsigned u,
-                                             unsigned nd) {
-  if constexpr (NW <= 2) {
-    const unsigned inc = u < nd ? 1u << ((u & 3u) << 3) : 0u;
+__device__ __forceinline__ void count_packed(unsigned (&c)[kWords],
+                                             unsigned u, unsigned nd) {
+  const unsigned inc = u < nd ? 1u << ((u & 3u) << 3) : 0u;
 #pragma unroll
-    for (int w = 0; w < NW; ++w) {
-      if ((u >> 2) == static_cast<unsigned>(w)) c[w] += inc;
-    }
-  } else {
-    // With four words the compiler turns the compare chain above into a
-    // store to a stack array indexed by u >> 2; a lane offset of its own
-    // for every word keeps each word in a register.
-#pragma unroll
-    for (int w = 0; w < NW; ++w) {
-      const unsigned t = u - 4u * w;
-      c[w] += (t < 4u && u < nd) ? 1u << (t << 3) : 0u;
-    }
+  for (int w = 0; w < kWords; ++w) {
+    if ((u >> 2) == static_cast<unsigned>(w)) c[w] += inc;
   }
 }
 
-template <int NW>
-__device__ __forceinline__ void flush_packed(unsigned (&c)[NW],
-                                             unsigned (&tot)[4 * NW]) {
+__device__ __forceinline__ void flush_packed(unsigned (&c)[kWords],
+                                             unsigned (&tot)[kRegisterBins]) {
 #pragma unroll
-  for (int w = 0; w < NW; ++w) {
+  for (int w = 0; w < kWords; ++w) {
 #pragma unroll
     for (int l = 0; l < 4; ++l) tot[4 * w + l] += (c[w] >> (8 * l)) & 0xFFu;
     c[w] = 0;
@@ -154,32 +146,31 @@ __device__ __forceinline__ void finish(int* __restrict__ acc,
   if (threadIdx.x == 0) atomicExch(ticket, 0u);
 }
 
-template <int NW, int MASK>
+template <int MASK>
 __global__ void __launch_bounds__(kThreads)
     hist_registers(const int* __restrict__ dest,
                    const unsigned char* __restrict__ valid, long long n,
                    int nd, int* __restrict__ acc,
                    unsigned* __restrict__ ticket, int* __restrict__ out) {
-  __shared__ unsigned warp_tot[kThreads / 32][4 * NW];
+  __shared__ unsigned warp_tot[kThreads / 32][kRegisterBins];
   const Split s = split(dest, n);
   const long long gid =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   const unsigned und = static_cast<unsigned>(nd);
 
-  unsigned c[NW], tot[4 * NW];
+  unsigned c[kWords], tot[kRegisterBins];
 #pragma unroll
-  for (int w = 0; w < NW; ++w) c[w] = 0;
+  for (int w = 0; w < kWords; ++w) c[w] = 0;
 #pragma unroll
-  for (int b = 0; b < 4 * NW; ++b) tot[b] = 0;
+  for (int b = 0; b < kRegisterBins; ++b) tot[b] = 0;
 
   // The head (elements before the first 16-byte boundary) and the tail.
   if (gid < s.head) {
-    count_packed<NW>(c, scalar_dest<MASK>(dest, valid, gid), und);
+    count_packed(c, scalar_dest<MASK>(dest, valid, gid), und);
   }
   if (gid < n - s.tail_start) {
-    count_packed<NW>(c, scalar_dest<MASK>(dest, valid, s.tail_start + gid),
-                     und);
+    count_packed(c, scalar_dest<MASK>(dest, valid, s.tail_start + gid), und);
   }
   // Two vectors in flight per thread: j and j + stride.
   for (long long j = gid; j < s.nvec;) {
@@ -192,17 +183,17 @@ __global__ void __launch_bounds__(kThreads)
       }
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        count_packed<NW>(c, u[e], und);
-        count_packed<NW>(c, w[e], und);
+        count_packed(c, u[e], und);
+        count_packed(c, w[e], und);
       }
     }
-    flush_packed<NW>(c, tot);
+    flush_packed(c, tot);
   }
-  flush_packed<NW>(c, tot);
+  flush_packed(c, tot);
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
-  for (int b = 0; b < 4 * NW; ++b) {
+  for (int b = 0; b < kRegisterBins; ++b) {
     const unsigned sum = __reduce_add_sync(0xffffffffu, tot[b]);
     if (lane == 0) warp_tot[warp][b] = sum;
   }
@@ -275,54 +266,50 @@ template <auto Kernel>
 int launch(size_t smem, const int* d, const unsigned char* v, long long n,
            int nd, int* acc, unsigned* ticket, int* out, cudaStream_t s) {
   const void* kernel = reinterpret_cast<const void*>(Kernel);
-  if (smem) {  // the kernel's static shared memory comes on top
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  const cudaError_t err = repro::allow_shared(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = repro::wave_blocks(kernel, kThreads, smem, n / 4);
   Kernel<<<blocks, kThreads, smem, s>>>(d, v, n, nd, acc, ticket, out);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int MASK>
-int dispatch(const int* d, const unsigned char* v, long long n, int nd,
-             int* acc, unsigned* ticket, int* out, cudaStream_t s) {
-  if (nd <= 4) {
-    return launch<hist_registers<1, MASK>>(0, d, v, n, nd, acc, ticket, out,
-                                           s);
+int dispatch(int branch, const int* d, const unsigned char* v, long long n,
+             int nd, int* acc, unsigned* ticket, int* out, cudaStream_t s) {
+  switch (branch) {
+    case kRegisters:
+      if (nd > kRegisterBins) return static_cast<int>(cudaErrorInvalidValue);
+      return launch<hist_registers<MASK>>(0, d, v, n, nd, acc, ticket, out,
+                                          s);
+    case kShared:
+      return launch<hist_bins<true, MASK>>(nd * sizeof(int), d, v, n, nd, acc,
+                                           ticket, out, s);
+    case kGlobal:
+      return launch<hist_bins<false, MASK>>(0, d, v, n, nd, acc, ticket, out,
+                                            s);
   }
-  if (nd <= 8) {
-    return launch<hist_registers<2, MASK>>(0, d, v, n, nd, acc, ticket, out,
-                                           s);
-  }
-  if (nd <= kMaxRegisterBins) {
-    return launch<hist_registers<4, MASK>>(0, d, v, n, nd, acc, ticket, out,
-                                           s);
-  }
-  if (nd <= kMaxSharedBins) {
-    return launch<hist_bins<true, MASK>>(nd * sizeof(int), d, v, n, nd, acc,
-                                         ticket, out, s);
-  }
-  return launch<hist_bins<false, MASK>>(0, d, v, n, nd, acc, ticket, out, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// dest: (n,) int32, n >= 1; valid: (n,) bool or null; nd >= 1; workspace:
-// (nd + 1,) int32, zero, used by no call in flight on another stream
-// (ticket first, then the accumulator), left zero; out: (nd,) int32.
+// dest: (n,) int32, n >= 1; valid: (n,) bool or null; nd >= 1; branch:
+// kRegisters (nd <= 8), kShared or kGlobal; workspace: (nd + 1,) int32,
+// zero, used by no call in flight on another stream (ticket first, then the
+// accumulator), left zero; out: (nd,) int32.
 extern "C" int repro_partition_hist(const void* dest, const void* valid,
-                                    long long n, int nd, void* workspace,
-                                    void* out, void* stream) {
+                                    long long n, int nd, int branch,
+                                    void* workspace, void* out,
+                                    void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   const int* d = static_cast<const int*>(dest);
   const auto* v = static_cast<const unsigned char*>(valid);
   auto* ticket = static_cast<unsigned*>(workspace);
   int* acc = static_cast<int*>(workspace) + 1;
   int* o = static_cast<int*>(out);
-  if (v == nullptr) return dispatch<kNoMask>(d, v, n, nd, acc, ticket, o, s);
+  if (v == nullptr) {
+    return dispatch<kNoMask>(branch, d, v, n, nd, acc, ticket, o, s);
+  }
   // The mask's bytes of the first whole vector start on a 4-byte boundary
   // exactly when the two pointers share their phase.
   const uintptr_t head_bytes =
@@ -330,8 +317,8 @@ extern "C" int repro_partition_hist(const void* dest, const void* valid,
   const bool word_aligned =
       ((reinterpret_cast<uintptr_t>(v) + head_bytes / 4) & 3) == 0;
   return word_aligned
-             ? dispatch<kMaskWord>(d, v, n, nd, acc, ticket, o, s)
-             : dispatch<kMaskBytes>(d, v, n, nd, acc, ticket, o, s);
+             ? dispatch<kMaskWord>(branch, d, v, n, nd, acc, ticket, o, s)
+             : dispatch<kMaskBytes>(branch, d, v, n, nd, acc, ticket, o, s);
 }
 
 extern "C" const char* repro_error_string(int err) {

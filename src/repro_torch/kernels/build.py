@@ -34,7 +34,7 @@ _U = ctypes.c_uint
 #: C entry points and their argument types. Every one returns the
 #: ``cudaError_t`` of its launch (0 = launched).
 SIGNATURES = {
-    "repro_partition_hist": (_P, _P, _LL, _I, _P, _P, _P),
+    "repro_partition_hist": (_P, _P, _LL, _I, _I, _P, _P, _P),
     "repro_tiled_probe": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
     "repro_tiled_probe3": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
                            _P, _P),

@@ -7,13 +7,14 @@ bytes). On a CUDA tensor it launches ``csrc/partition_hist.cu`` once; on a
 CPU tensor it runs the plain version in ``ref.py``.
 
 The kernel has three branches, chosen here by ``nd`` alone
-(``hist_branch``) and counted in ``partition_hist.branch_launches``:
-per-thread packed counters in registers for nd <= 16, per-block bins in
-shared memory for nd <= 12,288, and atomics into device memory beyond.
-Every block adds its counts into an accumulator that the last block to
-finish moves into the output and leaves zero, so a call is one launch with
-no fill. The accumulator and its ticket live in a workspace kept per CUDA
-stream (``_workspace``): calls in flight on two streams never share one.
+(``hist_branch``), passed to the kernel by code, which launches exactly
+that one, and counted in ``partition_hist.branch_launches``: per-thread
+packed counters in registers for nd <= 8, per-block bins in shared memory
+for nd <= 12,288, and atomics into device memory beyond. Every block adds
+its counts into an accumulator that the last block to finish moves into
+the output and leaves zero, so a call is one launch with no fill. The
+accumulator and its ticket live in a workspace kept per CUDA stream
+(``_workspace``): calls in flight on two streams never share one.
 """
 
 from __future__ import annotations
@@ -24,10 +25,12 @@ from . import ref
 from .build import check, library
 from .launch import cuda_stream, require_kernel_input
 
-#: Largest nd counted in registers (four words of four 8-bit lanes) and in
-#: shared memory (48 KB of int bins).
-MAX_REGISTER_BINS = 16
+#: Largest nd counted in registers (two words of four 8-bit lanes; the
+#: kernel refuses more) and in shared memory (48 KB of int bins).
+MAX_REGISTER_BINS = 8
 MAX_SHARED_BINS = 12_288
+#: The kernel's branch codes, by position.
+HIST_BRANCHES = ("registers", "shared", "global")
 
 
 def hist_branch(nd: int) -> str:
@@ -38,7 +41,11 @@ def hist_branch(nd: int) -> str:
 
 
 #: (device index, stream handle) -> int32 workspace: the ticket, then the
-#: accumulator; zero between calls on that stream.
+#: accumulator; zero between calls on that stream. Keying by the handle
+#: assumes that no stream's handle is reused while work is still queued on
+#: it: PyTorch's own streams never release theirs, but a destroyed
+#: ``torch.cuda.ExternalStream`` whose handle a new stream takes while its
+#: last call is in flight would share that call's accumulator.
 _workspaces: dict = {}
 
 
@@ -75,18 +82,20 @@ def partition_hist(dest: torch.Tensor, *, nd: int,
     if dest.numel() == 0 or nd <= 0:
         return torch.zeros(max(nd, 0), dtype=torch.int32, device=dest.device)
     out = torch.empty(nd, dtype=torch.int32, device=dest.device)
+    branch = hist_branch(nd)
     with cuda_stream(dest) as stream:
         ws = _workspace(dest.device, stream, nd)
         err = library().repro_partition_hist(
             dest.data_ptr(), None if valid is None else valid.data_ptr(),
-            dest.numel(), nd, ws.data_ptr(), out.data_ptr(), stream)
+            dest.numel(), nd, HIST_BRANCHES.index(branch), ws.data_ptr(),
+            out.data_ptr(), stream)
     check(err, "partition_hist")
     partition_hist.launches += 1
-    partition_hist.branch_launches[hist_branch(nd)] += 1
+    partition_hist.branch_launches[branch] += 1
     return out
 
 
 partition_hist.launches = 0  # type: ignore[attr-defined]
 #: Launches by kernel branch (``hist_branch``).
-partition_hist.branch_launches = {  # type: ignore[attr-defined]
-    "registers": 0, "shared": 0, "global": 0}
+partition_hist.branch_launches = dict.fromkeys(  # type: ignore[attr-defined]
+    HIST_BRANCHES, 0)

@@ -22,7 +22,9 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.bitonic_sort import bitonic_sort_tile
 from repro_torch.kernels.bloom import (bloom_build, bloom_probe,
                                        filter_fits_shared)
-from repro_torch.kernels.partition_hist import hist_branch, partition_hist
+from repro_torch.kernels.build import library
+from repro_torch.kernels.partition_hist import (HIST_BRANCHES, hist_branch,
+                                                partition_hist)
 from repro_torch.kernels.tiled_probe import (tiled_probe, tiled_probe3,
                                              tables_fit_shared)
 from repro_torch.kernels.zone_map import key_range
@@ -43,7 +45,8 @@ def on(dev, a):
 
 @pytest.mark.parametrize("n,nd", [(0, 4), (31, 8), (100_003, 128),
                                   (3_000_000, 8), (50_000, 20000),
-                                  (1_000_003, 1), (1_000_003, 16),
+                                  (1_000_003, 1), (1_000_003, 9),
+                                  (1_000_003, 16),
                                   (1_000_003, 17), (1_000_003, 12288),
                                   (1_000_003, 12289), (1_000_003, 20000)])
 def test_hist_equals_plain(cuda, n, nd):
@@ -54,11 +57,11 @@ def test_hist_equals_plain(cuda, n, nd):
     assert ops.launch_counts()["partition_hist"] == before + (n > 0)
 
 
-# Every branch of the kernel (registers nd <= 16, shared <= 12288, global
+# Every branch of the kernel (registers nd <= 8, shared <= 12288, global
 # beyond), with and without the mask, on views that start 0-3 elements
 # past an aligned base (dest and mask independently) and lengths that are
 # not a multiple of 4.
-@pytest.mark.parametrize("nd", [1, 8, 16, 17, 12288, 12289, 20000])
+@pytest.mark.parametrize("nd", [1, 8, 9, 16, 17, 12288, 12289, 20000])
 def test_hist_masked_views_equal_plain(cuda, nd):
     rng = np.random.default_rng(nd)
     d = on(cuda, rng.integers(-1, nd + 2, 200_011).astype(np.int32))
@@ -120,6 +123,18 @@ def test_hist_two_streams_at_once(cuda, nd):
     torch.cuda.synchronize()
     for i in range(2):
         assert all(torch.equal(g, want[i]) for g in got[i])
+
+
+# The kernel launches the branch the wrapper passes it, and refuses the
+# register branch for more bins than its packed words hold.
+def test_hist_register_branch_refuses_more_than_8_bins(cuda):
+    d = torch.zeros(1000, dtype=torch.int32, device=cuda)
+    ws = torch.zeros(10, dtype=torch.int32, device=cuda)
+    out = torch.empty(9, dtype=torch.int32, device=cuda)
+    err = library().repro_partition_hist(
+        d.data_ptr(), None, d.numel(), 9, HIST_BRANCHES.index("registers"),
+        ws.data_ptr(), out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    assert err != 0
 
 
 def _chip_smoke():

@@ -102,8 +102,8 @@ def test_masked_hist_rejects_a_bad_mask():
 
 
 @pytest.mark.parametrize("nd,branch", [
-    (1, "registers"), (4, "registers"), (8, "registers"), (16, "registers"),
-    (17, "shared"), (128, "shared"), (12288, "shared"), (12289, "global"),
+    (1, "registers"), (4, "registers"), (8, "registers"), (9, "shared"),
+    (16, "shared"), (17, "shared"), (128, "shared"), (12288, "shared"), (12289, "global"),
     (20000, "global")])
 def test_hist_branch_by_nd(nd, branch):
     assert hist_branch(nd) == branch
