@@ -17,7 +17,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    all-invalid and one-bin inputs, runs long enough to flush its packed
    counters, and from two streams at once; the bloom probe with filters in
    shared and in device memory, k = 1..8, all kept, all rejected and on
-   views);
+   views; the bitonic sort bit for bit, keys and values, against the
+   reference's network, at every n from 1 to 4096, B = 1, 7 and 133, on
+   ties, all-equal keys and the int32 ends, and on views; the bloom build
+   in every branch, on both sides of its one-cluster limit, m_bits 32 to
+   2^22, k = 1, 7, 8, all invalid, on views, from two streams at once and
+   interleaved with the histogram on one stream);
 4. the main path: q1-q12 under the four default strategies on
    ``generate(scale, p=8, seed=0)`` on the card: one warm-up pass, then the
    reported pass, with every launch count set to 0 just before and read
@@ -29,7 +34,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    with CUDA events (the kernel also by its device time alone, from events
    around each call queued behind a sleep kernel; the histogram also
    unmasked, at four times the input, with L2 emptied, beside the old
-   ``torch.where`` pair and a reduction of the same bytes);
+   ``torch.where`` pair and a reduction of the same bytes; the bitonic
+   sort also with L2 emptied, at four times the input, in tiles of 4,096
+   and at B = 1, n = 2, each beside its bound, plain version and
+   ``torch.sort``, and its device activities a call);
 5. runtime filters on the same catalog: q19-q23 under
    ``FilteredStrategy(s)`` for each default strategy, after a warm-up pass
    and beside the unfiltered runs: the same rows, the planned filter kinds,
@@ -38,7 +46,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    after); then the suite again against one shared ``FilterCache``, warm;
    one pass under ``torch.profiler``; then the filter kernels timed at
    their largest inputs, as in phase 4 (the bloom probe also at four times
-   the input and with L2 emptied);
+   the input and with L2 emptied; the bloom build as the bitonic sort in
+   phase 4, on 4,096 and on 32 keys);
 5b. reordering and the hypercube on the same catalog: q13-q15 and q35-q37
    under ``ReorderingStrategy(s)`` for each default strategy, and q35-q37
    also with ``hypercube=False``, after a warm-up pass: every run gives the
@@ -56,6 +65,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    runs on the CPU; and at scale 3 the gather path (``use_kernel=False``)
    gives the rows of the kernel path.
 
+With ``--save-inputs PATH`` it saves the inputs at which it timed the
+bitonic sort and the bloom build, for ``tools/time_sort_bloom.py``, which
+times another tree's kernels at them.
+
 Each phase prints its wall time. It prints one JSON line of kernel
 measurements, the card's name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``. It needs no network; it imports nothing
@@ -68,6 +81,7 @@ import argparse
 import contextlib
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -301,7 +315,6 @@ def check_kernels_edge_cases(dev) -> None:
     import torch
 
     from repro_torch.kernels import ref
-    from repro_torch.kernels.bitonic_sort import MAX_TILE, bitonic_sort_tile
     from repro_torch.kernels.tiled_probe import tiled_probe
 
     rng = np.random.default_rng(0)
@@ -348,23 +361,89 @@ def check_kernels_edge_cases(dev) -> None:
     print(f"  tiled_probe: {n_cases} cases equal to the plain version; "
           f"table branches of the edge cases {took}")
 
+    check_sort_edge_cases(dev, rng)
+    check_probe3_edge_cases(dev)
+
+
+#: Key patterns of the bitonic sort's edge cases.
+SORT_EDGE_KINDS = ("few distinct", "all equal", "int32 ends", "wide")
+
+
+def sort_edge_keys(rng, bsz: int, n: int, kind: str):
+    """(bsz, n) int32 keys of one bitonic-sort edge case: five distinct
+    values (ties everywhere), one value, the int32 ends among few others,
+    or the whole int32 range."""
+    import numpy as np
+
+    if kind == "few distinct":
+        return rng.integers(-2, 3, (bsz, n)).astype(np.int32)
+    if kind == "all equal":
+        return np.full((bsz, n), 7, np.int32)
+    if kind == "int32 ends":
+        ends = np.array([-(2 ** 31), 2 ** 31 - 1, -1, 0], np.int32)
+        return ends[rng.integers(0, 4, (bsz, n))]
+    return rng.integers(-(2 ** 31), 2 ** 31, (bsz, n),
+                        dtype=np.int64).astype(np.int32)
+
+
+def check_sort_edge_cases(dev, rng) -> None:
+    """bitonic_sort_tile bit for bit, keys and values, against the
+    reference's network (``ref.bitonic_network_ref``): every n from 2^0 to
+    2^12 at B = 1, 7 and 133 on every ``SORT_EDGE_KINDS`` pattern, with
+    distinct values (so any difference in tie order shows), and on views
+    that start 1-3 elements past an aligned base."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bitonic_sort import MAX_TILE, bitonic_sort_tile
+
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
     n_cases = 0
+
+    def case(k, v, label):
+        nonlocal n_cases
+        gk, gv = bitonic_sort_tile(k, v)
+        wk, wv = ref.bitonic_network_ref(k, v)
+        require(torch.equal(gk, wk) and torch.equal(gv, wv),
+                f"bitonic_sort_tile {label}")
+        n_cases += 1
+
     n = 1
     while n <= MAX_TILE:
-        for bsz in (1, 3):
-            k = t(rng.integers(-50, 50, (bsz, n)).astype(np.int32))
-            v = t(np.tile(np.arange(n, dtype=np.int32), (bsz, 1)))
-            gk, gv = bitonic_sort_tile(k, v)
-            wk, _ = ref.bitonic_sort_ref(k, v)
-            require(torch.equal(gk, wk), f"bitonic_sort_tile keys n={n}")
-            require(torch.equal(torch.gather(k, 1, gv.long()), gk),
-                    f"bitonic_sort_tile permutation n={n}")
-            n_cases += 1
+        for bsz in (1, 7, 133):
+            vals = t(rng.permutation(bsz * n).reshape(bsz, n).astype(
+                np.int32))
+            for kind in SORT_EDGE_KINDS:
+                case(t(sort_edge_keys(rng, bsz, n, kind)), vals,
+                     f"{kind} B={bsz} n={n}")
         n *= 2
-    print(f"  bitonic_sort_tile: {n_cases} cases agree with the plain "
-          "version (sorted keys equal, values address them)")
+    for n in (8, 2048, MAX_TILE):
+        keys = t(sort_edge_keys(rng, 1, 7 * n + 3, "few distinct")[0])
+        vals = t(rng.permutation(7 * n + 3).astype(np.int32))
+        for k0, v0 in ((1, 0), (0, 2), (3, 1), (2, 3)):
+            case(keys[k0:k0 + 7 * n].view(7, n),
+                 vals[v0:v0 + 7 * n].view(7, n),
+                 f"views +{k0} +{v0} B=7 n={n}")
+    print(f"  bitonic_sort_tile: {n_cases} cases equal to the reference's "
+          "network, keys and values")
 
-    check_probe3_edge_cases(dev)
+
+def on_two_streams(call, inputs, rounds: int = 20) -> list:
+    """``call(x)`` for each of the two ``inputs`` on a CUDA stream of its
+    own, ``rounds`` times, the two streams' calls in flight at once: the
+    results by input."""
+    import torch
+
+    streams = [torch.cuda.Stream() for _ in inputs]
+    torch.cuda.synchronize()
+    got: list = [[] for _ in inputs]
+    for _ in range(rounds):
+        for i, (stream, x) in enumerate(zip(streams, inputs)):
+            with torch.cuda.stream(stream):
+                got[i].append(call(x))
+    torch.cuda.synchronize()
+    return got
 
 
 #: Bin counts that reach every branch of partition_hist and its edges:
@@ -429,14 +508,7 @@ def check_hist_edge_cases(dev, rng) -> None:
             inputs = [t(rng.integers(-1, nd + 1, 4_000_000).astype(np.int32))
                       for _ in range(2)]
             want = [ref.partition_hist_ref(d, nd) for d in inputs]
-            streams = [torch.cuda.Stream() for _ in inputs]
-            torch.cuda.synchronize()
-            got = [[], []]
-            for _ in range(20):
-                for i, (s, d) in enumerate(zip(streams, inputs)):
-                    with torch.cuda.stream(s):
-                        got[i].append(partition_hist(d, nd=nd))
-            torch.cuda.synchronize()
+            got = on_two_streams(lambda d: partition_hist(d, nd=nd), inputs)
             require(all(torch.equal(g, want[i])
                         for i in range(2) for g in got[i]),
                     f"partition_hist nd={nd} on two streams at once")
@@ -565,6 +637,7 @@ def check_filter_kernels_edge_cases(dev) -> None:
           "to the plain versions, no false negatives")
     print(f"  key_range: {n_range} cases equal to the plain version")
     check_bloom_probe_edge_cases(dev, rng)
+    check_bloom_build_edge_cases(dev, rng)
 
 
 def check_bloom_probe_edge_cases(dev, rng) -> None:
@@ -606,6 +679,102 @@ def check_bloom_probe_edge_cases(dev, rng) -> None:
     print(f"  bloom_probe: {n_cases} more cases equal to the plain version "
           f"(all kept, all rejected, views); filter branches "
           f"of the edge cases {took}")
+
+
+def check_bloom_build_edge_cases(dev, rng) -> None:
+    """bloom_build bit for bit against its plain version in every branch
+    (one cluster up to ``ONE_CLUSTER_KEYS`` keys, blocks beyond, the filter in
+    device memory above 2^20 bits): n on both sides of the one-cluster limit
+    and up to 4,194,304, every m_bits from 32 to 2^22, k = 1, 7 and 8; all
+    keys invalid; keys and mask on views off a 16-byte boundary; calls in
+    flight on two streams at once; and calls interleaved with the
+    histogram's on one stream, which share its workspace."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bloom import (BUILD_BRANCHES, ONE_CLUSTER_KEYS,
+                                           bloom_build, build_branch)
+    from repro_torch.kernels.partition_hist import partition_hist
+
+    branches = dict(bloom_build.branch_launches)
+    n_cases = 0
+
+    def case(keys, valid, m_bits, k, label):
+        nonlocal n_cases
+        words = bloom_build(keys, valid, m_bits=m_bits, k=k)
+        want = ref.bloom_build_ref(keys, valid, m_bits, k)
+        require(torch.equal(words, want),
+                f"bloom_build {label} m_bits={m_bits} k={k}")
+        n_cases += 1
+        return words
+
+    def keys_and_mask(n, seed):
+        g = np.random.default_rng(seed)
+        keys = g.integers(-(2 ** 31), 2 ** 31, n, dtype=np.int64).astype(
+            np.int32)
+        keys[:min(n, 4)] = np.array([0, -1, -(2 ** 31), 2 ** 31 - 1],
+                                    np.int32)[:min(n, 4)]
+        return (torch.from_numpy(keys).to(dev),
+                torch.from_numpy(g.random(n) < 0.5).to(dev))
+
+    edge_n = (0, 1, 31, ONE_CLUSTER_KEYS - 1, ONE_CLUSTER_KEYS,
+              ONE_CLUSTER_KEYS + 1, 100_003, 4_194_304)
+    every_m_bits = [1 << e for e in range(5, 23)]
+    for n in edge_n:
+        keys, valid = keys_and_mask(n, n)
+        for m_bits in every_m_bits:
+            for k in (1, 7, 8):
+                case(keys, valid, m_bits, k, f"n={n}")
+    for n in (ONE_CLUSTER_KEYS, ONE_CLUSTER_KEYS + 1, 100_003):
+        keys, _ = keys_and_mask(n, n + 1)
+        none = torch.zeros(n, dtype=torch.bool, device=dev)
+        for m_bits in (1 << 16, 1 << 21):
+            words = case(keys, none, m_bits, 8, f"n={n} all invalid")
+            require(not bool(words.any()),
+                    f"bloom_build n={n} all invalid: bits set")
+    for n in (ONE_CLUSTER_KEYS, 100_003):
+        keys, valid = keys_and_mask(n + 3, n + 2)
+        for k0, v0 in ((1, 0), (0, 3), (2, 1), (3, 3)):
+            for m_bits in (1 << 16, 1 << 21):
+                case(keys[k0:k0 + n], valid[v0:v0 + n], m_bits, 8,
+                     f"n={n} views +{k0} +{v0}")
+    if dev.type == "cuda":
+        # Two streams at once, each call ORing into its stream's
+        # accumulator, in the two branches that use one.
+        for n, m_bits in ((100_003, 1 << 16), (100_003, 1 << 21)):
+            inputs = [keys_and_mask(n, 7 + i) for i in range(2)]
+            want = [ref.bloom_build_ref(kv, vv, m_bits, 8)
+                    for kv, vv in inputs]
+            got = on_two_streams(
+                lambda kv: bloom_build(*kv, m_bits=m_bits, k=8), inputs)
+            require(all(torch.equal(g, want[i])
+                        for i in range(2) for g in got[i]),
+                    f"bloom_build {build_branch(n, m_bits)} on two streams "
+                    "at once")
+            n_cases += 40
+    # Interleaved with the histogram on one stream: both kernels take the
+    # stream's workspace and leave it zero for the other.
+    keys, valid = keys_and_mask(100_003, 11)
+    dest = torch.from_numpy(rng.integers(-1, 20_001, 1_000_003).astype(
+        np.int32)).to(dev)
+    hist_want = ref.partition_hist_ref(dest, 20_000)
+    for m_bits in (1 << 16, 1 << 21):
+        want = ref.bloom_build_ref(keys, valid, m_bits, 8)
+        for _ in range(10):
+            require(torch.equal(partition_hist(dest, nd=20_000), hist_want),
+                    f"partition_hist beside bloom_build m_bits={m_bits}")
+            require(torch.equal(bloom_build(keys, valid, m_bits=m_bits, k=8),
+                                want),
+                    f"bloom_build beside partition_hist m_bits={m_bits}")
+            n_cases += 1
+    took = {b: bloom_build.branch_launches[b] - branches[b]
+            for b in BUILD_BRANCHES}
+    require(all(v > 0 for v in took.values()),
+            f"bloom_build branches launched {took}")
+    print(f"  bloom_build: {n_cases} more cases equal to the plain version "
+          f"(one-cluster limit {ONE_CLUSTER_KEYS} keys); branches of the edge "
+          f"cases {took}")
 
 
 # ---------------------------------------------------------------------------
@@ -761,10 +930,12 @@ def run_main_path(catalog):
     return launches, spy.calls
 
 
-#: Device kernels of the two redesigned kernels, by the names the profiler
+#: Device kernels of the redesigned kernels, by the names the profiler
 #: gives them.
 WATCHED = {"partition_hist": ("hist_registers", "hist_bins"),
-           "bloom_probe": ("bloom_probe_kernel",)}
+           "bloom_probe": ("bloom_probe_kernel",),
+           "bloom_build": ("bloom_build_",),
+           "bitonic_sort_tile": ("bitonic_sort_kernel",)}
 
 
 def profile_pass(run_all) -> None:
@@ -808,6 +979,8 @@ def profile_pass(run_all) -> None:
                 if any(part in name for part in parts)]
         print(f"  {label} kernels: {sum(n for n, _ in hits)} activities, "
               f"{sum(us for _, us in hits) / 1e3:.3f} ms of device time")
+    memsets = sum(n for name, (n, _) in by_name.items() if "Memset" in name)
+    print(f"  memsets: {memsets} activities")
     print("  device time by kernel:")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
     for name, (n, us) in top:
@@ -826,11 +999,7 @@ def profile_pass(run_all) -> None:
 # ---------------------------------------------------------------------------
 
 def measure_kernels(calls: dict, launches: dict) -> list:
-    import torch
-
     from repro_torch.kernels import ref
-    from repro_torch.kernels.bitonic_sort import bitonic_sort_tile
-    from repro_torch.kernels.partition_hist import partition_hist
     from repro_torch.kernels.tiled_probe import tiled_probe
 
     rows = []
@@ -861,28 +1030,186 @@ def measure_kernels(calls: dict, launches: dict) -> list:
         shape=f"B={bsz} na={na} nb={nb}"))
 
     _, (k, v), _ = calls["bitonic_sort_tile"]
-    bsz, n = k.shape
-    gk, gv = bitonic_sort_tile(k, v)
-    wk, _ = ref.bitonic_sort_ref(k, v)
-    # The sort is not stable: compare the keys, and the keys the values
-    # address (v holds row ids on the main path).
-    err = max(float((gk - wk).abs().max()),
-              float((torch.gather(k, 1, gv.long()) - gk).abs().max()))
-    logn = int(math.log2(n))
-    b_ms, b_by = bound(16 * bsz * n, bsz * n // 2 * logn * (logn + 1) // 2)
-    rows.append(dict(
-        name="bitonic_sort_tile", route="cuda",
-        source="src/repro_torch/csrc/bitonic_sort.cu",
-        replaces="src/repro/kernels/bitonic_sort.py:66",
-        launches=launches["bitonic_sort_tile"], max_abs_err=err,
-        **time_kernel(lambda: bitonic_sort_tile(k, v), 50),
-        plain_ms=cuda_ms(lambda: ref.bitonic_sort_ref(k, v), 50),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=cuda_ms(lambda: torch.sort(k, dim=-1), 50),
-        shape=f"B={bsz} n={n}"))
+    rows.append(measure_sort(k, v, launches["bitonic_sort_tile"]))
 
     report_kernels(rows)
     return rows
+
+
+def sort_least_work(bsz: int, n: int) -> tuple[float, float]:
+    """Least work of the bitonic sort of (bsz, n) pairs: keys and values
+    read once and written once (16 bytes an element); log2 n (log2 n + 1)
+    / 2 stages of n/2 compare-exchanges a row, each a compare and four
+    selects (the lower and upper key and value), 5 operations. Returns
+    (bytes, operations)."""
+    logn = int(math.log2(n)) if n > 1 else 0
+    return 16.0 * bsz * n, 5.0 * bsz * (n // 2) * logn * (logn + 1) // 2
+
+
+def bloom_build_least_work(n: int, n_valid: int, m_bits: int, k: int
+                           ) -> tuple[float, float]:
+    """Least work of the bloom build: each key and mask byte read once and
+    each word written once; one operation a key for its mask, two 32-bit
+    hashes a valid key (13 integer operations: two mix chains and the
+    odd-forcing OR) and 7 for each of its k bit positions and its word
+    update. Returns (bytes, operations)."""
+    return 5.0 * n + m_bits // 8, float(n + n_valid * (13 + 7 * k))
+
+
+def sort_cases(k, v) -> dict:
+    """The inputs at which the bitonic sort is timed: the path's largest
+    (``main``), four times its rows, its keys in tiles of 4,096, and the
+    fixed cost of a call (B = 1, n = 2)."""
+    def tiles(x):
+        flat = x.reshape(-1)
+        if flat.numel() < 4096:
+            flat = flat.repeat(4096 // flat.numel() + 1)
+        return flat[:flat.numel() // 4096 * 4096].reshape(-1, 4096)
+    return {"main": (k, v), "4x": (k.repeat(4, 1), v.repeat(4, 1)),
+            "n=4096": (tiles(k), tiles(v)),
+            "fixed cost": (k[:1, :2].contiguous(), v[:1, :2].contiguous())}
+
+
+def bloom_cases(keys, valid) -> dict:
+    """The inputs at which the bloom build is timed: the path's largest
+    (``main``), its keys four times over, its first 4,096 keys, and the
+    fixed cost of a call (32 keys)."""
+    flat_k, flat_v = keys.reshape(-1), valid.reshape(-1)
+    return {"main": (keys, valid),
+            "4x": (flat_k.repeat(4), flat_v.repeat(4)),
+            "n=4096": (flat_k[:4096], flat_v[:4096]),
+            "fixed cost": (flat_k[:32], flat_v[:32])}
+
+
+def device_activities(fn, calls: int = 20):
+    """Device activities (kernels, memsets, copies) a call of ``fn`` queues,
+    by ``torch.profiler`` over ``calls`` calls; None where the profiler
+    recorded none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    return n / calls if n else None
+
+
+def case_times(cases: dict, call, reps: int) -> dict:
+    """``time_kernel`` (cold too) of ``call(*args)`` at each of ``cases``
+    (label -> args)."""
+    return {label: time_kernel(lambda: call(*args), reps, cold=True)
+            for label, args in cases.items()}
+
+
+def sort_bloom_kernel_times(k, v, keys, valid, m_bits: int,
+                            n_hashes: int) -> dict:
+    """The bitonic sort's and the bloom build's times at ``sort_cases`` and
+    ``bloom_cases`` (``case_times``), and their device activities a call at
+    the main input. It calls only the two wrappers, so it times any tree of
+    the port (``tools/time_sort_bloom.py``)."""
+    from repro_torch.kernels.bitonic_sort import bitonic_sort_tile
+    from repro_torch.kernels.bloom import bloom_build
+
+    def build(kk, vv):
+        return bloom_build(kk, vv, m_bits=m_bits, k=n_hashes)
+
+    return {"bitonic_sort_tile": case_times(sort_cases(k, v),
+                                            bitonic_sort_tile, 50),
+            "bloom_build": case_times(bloom_cases(keys, valid), build, 100),
+            "activities": {
+                "bitonic_sort_tile": device_activities(
+                    lambda: bitonic_sort_tile(k, v)),
+                "bloom_build": device_activities(lambda: build(keys, valid))}}
+
+
+def measure_sort(k, v, launches: int) -> dict:
+    """K3 at the main path's largest call: the JSON row, held bit for bit
+    against the reference's network, and the ``sort_cases`` readings, each
+    beside its bound, the plain version and ``torch.sort``."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bitonic_sort import bitonic_sort_tile
+
+    bsz, n = k.shape
+    gk, gv = bitonic_sort_tile(k, v)
+    wk, wv = ref.bitonic_network_ref(k, v)
+    err = max(float((gk - wk).abs().max()), float((gv - wv).abs().max()))
+    cases = sort_cases(k, v)
+    times = case_times(cases, bitonic_sort_tile, 50)
+    rows = {}
+    for label, (kk, vv) in cases.items():
+        b_ms, b_by = bound(*sort_least_work(*kk.shape))
+        rows[label] = dict(
+            name="bitonic_sort_tile", route="cuda",
+            source="src/repro_torch/csrc/bitonic_sort.cu",
+            replaces="src/repro/kernels/bitonic_sort.py:66",
+            launches=launches, max_abs_err=err, **times[label],
+            plain_ms=cuda_ms(lambda: ref.bitonic_network_ref(kk, vv), 20),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=cuda_ms(lambda: torch.sort(kk, dim=-1), 50),
+            library_device_ms=device_ms(lambda: torch.sort(kk, dim=-1), 50),
+            shape=f"B={kk.shape[0]} n={kk.shape[1]}")
+    print(f"  bitonic_sort_tile at B={bsz}, n={n}: keys and values equal "
+          "the reference's network; device activities a call "
+          f"{device_activities(lambda: bitonic_sort_tile(k, v))}")
+    print_cases("bitonic_sort_tile", rows, "torch.sort")
+    return rows["main"]
+
+
+def measure_bloom_build(keys, valid, m_bits: int, k: int,
+                        launches: int) -> dict:
+    """K4 at the filter path's largest call: the JSON row, and the
+    ``bloom_cases`` readings, each bit for bit against the plain version
+    and beside its bound and the plain version's time."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bloom import bloom_build, build_branch
+
+    def build(kk, vv):
+        return bloom_build(kk, vv, m_bits=m_bits, k=k)
+
+    cases = bloom_cases(keys, valid)
+    times = case_times(cases, build, 100)
+    rows = {}
+    for label, (kk, vv) in cases.items():
+        flat_k, flat_v = kk.reshape(-1), vv.reshape(-1)
+        n, n_valid = flat_k.numel(), int(flat_v.sum())
+        want = ref.bloom_build_ref(flat_k, flat_v, m_bits, k)
+        b_ms, b_by = bound(*bloom_build_least_work(n, n_valid, m_bits, k))
+        rows[label] = dict(
+            name="bloom_build", route="cuda",
+            source="src/repro_torch/csrc/bloom.cu",
+            replaces="src/repro/kernels/bloom.py:140",
+            launches=launches,
+            max_abs_err=float((build(kk, vv).long() - want.long()).abs()
+                              .max()),
+            **times[label],
+            plain_ms=cuda_ms(lambda: ref.bloom_build_ref(flat_k, flat_v,
+                                                         m_bits, k), 20),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            shape=f"n={n} valid={n_valid} m_bits={m_bits} k={k} "
+                  f"{build_branch(n, m_bits)}")
+    print(f"  bloom_build: device activities a call "
+          f"{device_activities(lambda: build(keys, valid))}")
+    print_cases("bloom_build", rows, None)
+    return rows["main"]
+
+
+def print_cases(name: str, rows: dict, library: str | None) -> None:
+    for label, r in rows.items():
+        require(r["max_abs_err"] == 0,
+                f"{name} disagrees with its plain version at {r['shape']}")
+        lib = (f", {library} {r['library_ms']:.4f} ms (device "
+               f"{r['library_device_ms']:.4f} ms)" if library else "")
+        print(f"    {label:10s} {r['shape']:44s} events {r['ms']:.4f} ms, "
+              f"device {r['device_ms']:.4f} ms, L2 emptied "
+              f"{r['device_cold_ms']:.4f} ms; bound {r['bound_ms']:.6f} ms "
+              f"({r['bound_by']}); plain {r['plain_ms']:.4f} ms{lib}")
 
 
 def hist_least_work(n: int, nd: int, masked: bool) -> tuple[float, float]:
@@ -1094,33 +1421,13 @@ def measure_filter_kernels(calls: dict, launches: dict) -> list:
     import torch
 
     from repro_torch.kernels import ref
-    from repro_torch.kernels.bloom import bloom_build, bloom_probe
     from repro_torch.kernels.zone_map import key_range
 
     rows = []
 
-    # Operation counts: the two 32-bit hashes of a key take 13 integer
-    # operations (two mix chains and the odd-forcing OR), each bit position
-    # and its word update or test 7 more.
     _, (keys, valid), kw = calls["bloom_build"]
-    m_bits, k = kw["m_bits"], kw["k"]
-    flat_k, flat_v = keys.reshape(-1), valid.reshape(-1)
-    n, n_valid = flat_k.numel(), int(flat_v.sum())
-    got = bloom_build(keys, valid, m_bits=m_bits, k=k)
-    want = ref.bloom_build_ref(flat_k, flat_v, m_bits, k)
-    b_ms, b_by = bound(5 * n + m_bits // 8, n + n_valid * (13 + 7 * k))
-    rows.append(dict(
-        name="bloom_build", route="cuda",
-        source="src/repro_torch/csrc/bloom.cu",
-        replaces="src/repro/kernels/bloom.py:140",
-        launches=launches["bloom_build"],
-        max_abs_err=float((got.long() - want.long()).abs().max()),
-        **time_kernel(lambda: bloom_build(keys, valid, m_bits=m_bits,
-                                          k=k), 200),
-        plain_ms=cuda_ms(lambda: ref.bloom_build_ref(flat_k, flat_v, m_bits,
-                                                     k), 20),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        shape=f"n={n} valid={n_valid} m_bits={m_bits} k={k}"))
+    rows.append(measure_bloom_build(keys, valid, kw["m_bits"], kw["k"],
+                                    launches["bloom_build"]))
 
     _, (keys, words), kw = calls["bloom_probe"]
     rows.append(measure_bloom_probe(keys, words, kw["k"],
@@ -1478,6 +1785,12 @@ def ptxas_usage(report: str):
             while j < len(sym) and sym[j].isdigit():
                 j += 1
             last, i = sym[j:j + int(sym[i:j])], j + int(sym[i:j])
+        # Template arguments that are integer or bool constants
+        # (``ILi8ELi3ELb1EE``), so that instantiations tell apart.
+        targs = re.match(r"I((?:L[a-z]n?\d+E)+)E", sym[i:])
+        if targs:
+            last += "<" + ",".join(re.findall(r"L[a-z](n?\d+)E",
+                                              targs.group(1))) + ">"
         return last
 
     kernel, spills = "?", ""
@@ -1504,6 +1817,9 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--scale", type=float, default=30.0,
                         help="main-path catalog scale (default 30)")
+    parser.add_argument("--save-inputs", type=Path, default=None,
+                        help="save the bitonic sort's and the bloom build's "
+                             "timed inputs here (torch.save)")
     args = parser.parse_args()
 
     import torch
@@ -1544,12 +1860,22 @@ def main() -> int:
         print("  kernel timings at the main path's largest inputs "
               f"({smi}):")
         rows = measure_kernels(calls, launches)
+        _, sort_args, _ = calls["bitonic_sort_tile"]
 
     with phase("5. runtime filters"):
         launches, calls = run_filter_path(catalog)
         print("  filter kernel timings at the filter path's largest inputs "
               f"({smi}):")
         rows += measure_filter_kernels(calls, launches)
+        if args.save_inputs is not None:
+            _, bloom_args, kw = calls["bloom_build"]
+            args.save_inputs.parent.mkdir(parents=True, exist_ok=True)
+            torch.save({"sort": [a.cpu() for a in sort_args],
+                        "bloom": [a.cpu() for a in bloom_args],
+                        "m_bits": kw["m_bits"], "k": kw["k"]},
+                       args.save_inputs)
+            print(f"  saved the timed sort and build inputs to "
+                  f"{args.save_inputs}")
 
     with phase("5b. reordering and the hypercube"):
         launches, calls = run_reorder_path(catalog)

@@ -11,10 +11,39 @@
 // The TPU version built and read the filter through one-hot matmuls, a
 // workaround for having no scatter or gather.
 //
-// Build. Bound on this card: bytes (5 bytes a key in, the words out). One
-// thread per key over a grid-stride loop, one atomicOr per bit into the
-// words, zeroed on the stream first; OR is order-free, so the filter is
-// bit-identical to the plain version whatever the schedule.
+// Build. Bound on this card: neither bytes nor operations. At the filter
+// path's largest call (12,000 keys, 3,444 valid, m_bits 65,536, k = 8) it
+// moves 68 KB and makes 250k operations, 0.00002 ms of work; what a call
+// costs is its launch and the chain of dependent steps inside it. The
+// kernel this replaces was two device activities a call, a memset of the
+// words and then one global atomicOr a bit (27,552 at that input, queued
+// on a few thousand L2 lines). Here a call is one launch with no memset,
+// in one of three branches that the wrapper chooses from (n, m_bits)
+// (kernels/bloom.py, build_branch) and passes as a code:
+//  * cluster (n <= the wrapper's ONE_CLUSTER_KEYS, the filter in shared
+//    memory; the filter path's case): one cluster of 8 blocks of 512
+//    threads on 8 SMs. Each block zeroes a whole filter in its shared
+//    memory (m_bits / 8 bytes, 8 KB at 65,536 bits) and ORs its share of
+//    the keys' bits into it with shared atomics; after a cluster barrier,
+//    block r ORs word slice r of the 8 filters, read through distributed
+//    shared memory, and writes it out, zeros included. No global atomic,
+//    no workspace. One block alone would hash every key on one SM:
+//    0.0116-0.0137 ms at 12,000 keys, where the cluster takes 0.008 ms,
+//    about 0.007 ms of it the fixed cost of a cluster launch (PERF.md);
+//  * blocks (more keys, the filter in shared memory): each block builds the
+//    filter of its keys in shared memory, then ORs its nonzero words into
+//    the accumulator of the per-stream workspace (kernels/launch.py), which
+//    is zero between calls; the last block to finish moves it into the
+//    output with atomicExch, leaving it zero (last_block.cuh, partition_hist's
+//    scheme). The merge makes up to blocks * m_words global atomics, so the
+//    grid is cut to blocks * m_words <= n * k / 16 (at least one block,
+//    at most one wave): the merge then makes at most a sixteenth as many
+//    atomics as the keys would straight into device memory;
+//  * device (filters larger than shared memory, m_bits > 2^20): every block
+//    ORs straight into the accumulator, with the same finish.
+// Each thread keeps the loads of four keys and their mask bytes in flight.
+// OR is order-free, so the words are bit-identical to the plain version
+// whatever the schedule.
 //
 // Probe. Bound on this card: integer operations. It reads 4 bytes a key and
 // writes 1, but a key costs two hash chains (13 operations) and each bit it
@@ -41,14 +70,17 @@
 
 #include <cstdint>
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "grid.cuh"
+#include "last_block.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBlocksPerSm = 8;
+constexpr int kBuildThreads = 512;
 
 __device__ __forceinline__ uint32_t hash32(uint32_t key, uint32_t seed) {
   uint32_t h = key * seed;
@@ -58,24 +90,130 @@ __device__ __forceinline__ uint32_t hash32(uint32_t key, uint32_t seed) {
   return h;
 }
 
-__global__ void bloom_build_kernel(const int* __restrict__ keys,
-                                   const unsigned char* __restrict__ valid,
-                                   long long n, uint32_t mask, int k,
-                                   uint32_t seed1, uint32_t seed2,
-                                   unsigned int* __restrict__ words) {
+// Branch codes, in the order of the wrapper's BUILD_BRANCHES.
+constexpr int kCluster = 0, kBlocks = 1, kDevice = 2;
+constexpr int kClusterBlocks = 8;
+
+// ORs the k bits of every valid key of this thread's share of a grid-stride
+// loop over the n keys into `bits`, with the loads of four keys (and their
+// mask bytes) in flight at a time.
+__device__ __forceinline__ void or_keys(int* bits,
+                                        const int* __restrict__ keys,
+                                        const unsigned char* __restrict__ valid,
+                                        long long n, uint32_t mask, int k,
+                                        uint32_t seed1, uint32_t seed2) {
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
                      threadIdx.x;
-       i < n; i += stride) {
-    if (!valid[i]) continue;
-    const uint32_t key = static_cast<uint32_t>(keys[i]);
-    const uint32_t h1 = hash32(key, seed1);
-    const uint32_t h2 = hash32(key, seed2) | 1u;
-    for (int j = 0; j < k; ++j) {
-      const uint32_t pos = (h1 + static_cast<uint32_t>(j) * h2) & mask;
-      atomicOr(&words[pos >> 5], 1u << (pos & 31u));
+       i < n; i += 4 * stride) {
+    uint32_t key[4];
+    bool live[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const long long j = i + e * stride;
+      key[e] = j < n ? static_cast<uint32_t>(keys[j]) : 0u;
+      live[e] = j < n && valid[j];
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (!live[e]) continue;
+      uint32_t pos = hash32(key[e], seed1);
+      const uint32_t step = hash32(key[e], seed2) | 1u;
+      for (int j = 0; j < k; ++j, pos += step) {
+        atomicOr(&bits[(pos & mask) >> 5],
+                 static_cast<int>(1u << (pos & 31u)));
+      }
     }
   }
+}
+
+// One cluster of kClusterBlocks blocks on as many SMs: each block zeroes a
+// whole filter in its shared memory and ORs its share of the keys into it;
+// then block r ORs word slice r of the cluster's filters, read through
+// distributed shared memory, and writes it out.
+__global__ void __cluster_dims__(kClusterBlocks, 1, 1)
+    __launch_bounds__(kBuildThreads)
+        bloom_build_cluster(const int* __restrict__ keys,
+                            const unsigned char* __restrict__ valid,
+                            long long n, int m_words, int k, uint32_t seed1,
+                            uint32_t seed2, int* __restrict__ out) {
+  extern __shared__ int filter[];
+  for (int w = threadIdx.x; w < m_words; w += blockDim.x) filter[w] = 0;
+  __syncthreads();
+  or_keys(filter, keys, valid, n, 32u * m_words - 1u, k, seed1, seed2);
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int slice = (m_words + kClusterBlocks - 1) / kClusterBlocks;
+  const int begin = static_cast<int>(cluster.block_rank()) * slice;
+  const int end = min(m_words, begin + slice);
+  for (int w = begin + threadIdx.x; w < end; w += blockDim.x) {
+    int word = 0;
+#pragma unroll
+    for (int b = 0; b < kClusterBlocks; ++b) {
+      word |= cluster.map_shared_rank(filter, b)[w];
+    }
+    out[w] = word;
+  }
+  cluster.sync();  // no block leaves while another reads its filter
+}
+
+// SHARED: each block ORs into its own filter in shared memory and merges
+// the nonzero words into acc; else every block ORs into acc directly.
+template <bool SHARED>
+__global__ void __launch_bounds__(kBuildThreads)
+    bloom_build_kernel(const int* __restrict__ keys,
+                       const unsigned char* __restrict__ valid, long long n,
+                       int m_words, int k, uint32_t seed1, uint32_t seed2,
+                       int* __restrict__ acc, unsigned* __restrict__ ticket,
+                       int* __restrict__ out) {
+  extern __shared__ int filter[];
+  if (SHARED) {
+    for (int w = threadIdx.x; w < m_words; w += blockDim.x) filter[w] = 0;
+    __syncthreads();
+  }
+  or_keys(SHARED ? filter : acc, keys, valid, n, 32u * m_words - 1u, k,
+          seed1, seed2);
+  if (SHARED) {
+    __syncthreads();
+    for (int w = threadIdx.x; w < m_words; w += blockDim.x) {
+      const int word = filter[w];
+      if (word != 0) atomicOr(&acc[w], word);
+    }
+  }
+  repro::finish_last_block(acc, ticket, m_words, out);
+}
+
+int launch_cluster(const int* keys, const unsigned char* valid, long long n,
+                   int m_bits, int k, uint32_t seed1, uint32_t seed2,
+                   int* out, cudaStream_t s) {
+  const void* kernel = reinterpret_cast<const void*>(bloom_build_cluster);
+  const size_t smem = static_cast<size_t>(m_bits) / 8;
+  const cudaError_t err = repro::allow_shared(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  bloom_build_cluster<<<kClusterBlocks, kBuildThreads, smem, s>>>(
+      keys, valid, n, m_bits / 32, k, seed1, seed2, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool SHARED>
+int launch_blocks(const int* keys, const unsigned char* valid, long long n,
+                  int m_bits, int k, uint32_t seed1, uint32_t seed2, int* acc,
+                  unsigned* ticket, int* out, cudaStream_t s) {
+  const void* kernel =
+      reinterpret_cast<const void*>(bloom_build_kernel<SHARED>);
+  const int m_words = m_bits / 32;
+  const size_t smem = SHARED ? static_cast<size_t>(m_bits) / 8 : 0;
+  const cudaError_t err = repro::allow_shared(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int blocks = repro::wave_blocks(kernel, kBuildThreads, smem, n);
+  if (SHARED) {
+    // blocks * m_words <= n * k / 16: see the note at the top.
+    const long long cap = n * k / (16LL * m_words);
+    if (cap < blocks) blocks = cap > 1 ? static_cast<int>(cap) : 1;
+  }
+  bloom_build_kernel<SHARED><<<blocks, kBuildThreads, smem, s>>>(
+      keys, valid, n, m_words, k, seed1, seed2, acc, ticket, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 constexpr int kProbeThreads = 512;
@@ -218,22 +356,34 @@ int dispatch_probe(const int* keys, long long n, const unsigned* words,
 
 }  // namespace
 
-// keys, valid: (n,) int32 and bool; words: (m_bits / 32,) uint32, zeroed
-// here. m_bits a power of two >= 32; n >= 1, k >= 1.
+// keys, valid: (n,) int32 and bool, n >= 1; m_bits a power of two >= 32,
+// whose m_bits / 8 bytes fit in shared memory for kCluster and kBlocks;
+// k >= 1; branch: kCluster, kBlocks or kDevice; workspace: (m_bits / 32 +
+// 1,) int32, zero (the ticket, then the accumulator), used by no call in
+// flight on another stream, left zero; kCluster does not touch it (null
+// is allowed). words: (m_bits / 32,) uint32, every word written.
 extern "C" int repro_bloom_build(const void* keys, const void* valid,
                                  long long n, int m_bits, int k,
                                  unsigned int seed1, unsigned int seed2,
-                                 void* words, void* stream) {
+                                 int branch, void* workspace, void* words,
+                                 void* stream) {
+  const auto* kp = static_cast<const int*>(keys);
+  const auto* v = static_cast<const unsigned char*>(valid);
+  auto* ticket = static_cast<unsigned*>(workspace);
+  int* acc = static_cast<int*>(workspace) + 1;
+  auto* out = static_cast<int*>(words);
   auto s = static_cast<cudaStream_t>(stream);
-  const cudaError_t zeroed = cudaMemsetAsync(
-      words, 0, static_cast<size_t>(m_bits / 32) * sizeof(unsigned int), s);
-  if (zeroed != cudaSuccess) return static_cast<int>(zeroed);
-  const int blocks = repro::grid_stride_blocks(n, kThreads, kBlocksPerSm);
-  bloom_build_kernel<<<blocks, kThreads, 0, s>>>(
-      static_cast<const int*>(keys), static_cast<const unsigned char*>(valid),
-      n, static_cast<uint32_t>(m_bits - 1), k, seed1, seed2,
-      static_cast<unsigned int*>(words));
-  return static_cast<int>(cudaGetLastError());
+  switch (branch) {
+    case kCluster:
+      return launch_cluster(kp, v, n, m_bits, k, seed1, seed2, out, s);
+    case kBlocks:
+      return launch_blocks<true>(kp, v, n, m_bits, k, seed1, seed2, acc,
+                                 ticket, out, s);
+    case kDevice:
+      return launch_blocks<false>(kp, v, n, m_bits, k, seed1, seed2, acc,
+                                  ticket, out, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // keys: (n,) int32, n >= 1; words: (m_bits / 32,) uint32; out: (n,) bool.

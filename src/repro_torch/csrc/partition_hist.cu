@@ -30,14 +30,16 @@
 // One launch per call, with no fill: every block adds its counts into an
 // accumulator that is zero between calls, then takes a ticket; the block
 // that takes the last ticket moves the accumulator into `out`, zeroing it
-// and the ticket as it goes. The wrapper keeps one accumulator per CUDA
-// stream, so calls in flight on two streams never share one.
+// and the ticket as it goes (last_block.cuh). The accumulator is the
+// per-stream workspace of kernels/launch.py, which bloom_build shares, so
+// calls in flight on two streams never share one.
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
 #include "grid.cuh"
+#include "last_block.cuh"
 
 namespace {
 
@@ -127,25 +129,6 @@ __device__ __forceinline__ void flush_packed(unsigned (&c)[kWords],
   }
 }
 
-// Every block calls this once, after its last add into acc: the block that
-// takes the last ticket moves acc[0, nd) into out and leaves acc and the
-// ticket zero for the next call on the stream.
-__device__ __forceinline__ void finish(int* __restrict__ acc,
-                                       unsigned* __restrict__ ticket, int nd,
-                                       int* __restrict__ out) {
-  __shared__ bool last;
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) last = atomicAdd(ticket, 1u) == gridDim.x - 1;
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  for (int k = threadIdx.x; k < nd; k += blockDim.x) {
-    out[k] = atomicExch(&acc[k], 0);
-  }
-  if (threadIdx.x == 0) atomicExch(ticket, 0u);
-}
-
 template <int MASK>
 __global__ void __launch_bounds__(kThreads)
     hist_registers(const int* __restrict__ dest,
@@ -203,7 +186,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int w = 0; w < kThreads / 32; ++w) sum += warp_tot[w][threadIdx.x];
     if (sum) atomicAdd(&acc[threadIdx.x], static_cast<int>(sum));
   }
-  finish(acc, ticket, nd, out);
+  repro::finish_last_block(acc, ticket, nd, out);
 }
 
 // Every lane of the warp calls this; key ~0u (or >= nd) adds nothing.
@@ -258,7 +241,7 @@ __global__ void __launch_bounds__(kThreads)
       if (c != 0) atomicAdd(&acc[k], c);
     }
   }
-  finish(acc, ticket, nd, out);
+  repro::finish_last_block(acc, ticket, nd, out);
 }
 
 // Launches a one-wave grid of Kernel over the n / 4 vectors.

@@ -43,3 +43,35 @@ def flat_valid(valid: torch.Tensor | None, keys: torch.Tensor
         raise ValueError(f"valid has {valid.numel()} entries, keys "
                          f"{keys.numel()}")
     return valid.reshape(-1).to(torch.bool).contiguous()
+
+
+#: (device index, stream handle) -> int32 workspace: a ticket, then an
+#: accumulator; zero between calls on that stream. The one-launch
+#: reductions (``partition_hist``, ``bloom_build``) share it: calls on one
+#: stream run in order, and each leaves the ticket and the accumulator
+#: zero. Keying by the handle assumes that no stream's handle is reused
+#: while work is still queued on it: PyTorch's own streams never release
+#: theirs, but a destroyed ``torch.cuda.ExternalStream`` whose handle a new
+#: stream takes while its last call is in flight would share that call's
+#: accumulator.
+_workspaces: dict = {}
+
+#: Accumulator words a new workspace holds at least: the words of the
+#: filter path's bloom filters (65,536 bits), more than any histogram of
+#: the main path needs.
+MIN_WORKSPACE_WORDS = 2048
+
+
+def workspace(device: torch.device, stream: int, words: int
+              ) -> torch.Tensor:
+    """The zero workspace of ``stream`` on ``device``, with room for an
+    accumulator of at least ``words`` int32 after its ticket."""
+    key = (device.index, stream)
+    ws = _workspaces.get(key)
+    if ws is None or ws.numel() < words + 1:
+        # Zeroed once; the kernels leave it zero. The old one is released
+        # to the allocator on this stream, after the work queued on it.
+        ws = torch.zeros(max(words, MIN_WORKSPACE_WORDS) + 1,
+                         dtype=torch.int32, device=device)
+        _workspaces[key] = ws
+    return ws

@@ -13,8 +13,9 @@ packed counters in registers for nd <= 8, per-block bins in shared memory
 for nd <= 12,288, and atomics into device memory beyond. Every block adds
 its counts into an accumulator that the last block to finish moves into
 the output and leaves zero, so a call is one launch with no fill. The
-accumulator and its ticket live in a workspace kept per CUDA stream
-(``_workspace``): calls in flight on two streams never share one.
+accumulator and its ticket live in the workspace kept per CUDA stream
+(``launch.workspace``, shared with ``bloom_build``): calls in flight on
+two streams never share one.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import torch
 
 from . import ref
 from .build import check, library
-from .launch import cuda_stream, require_kernel_input
+from .launch import cuda_stream, require_kernel_input, workspace
 
 #: Largest nd counted in registers (two words of four 8-bit lanes; the
 #: kernel refuses more) and in shared memory (48 KB of int bins).
@@ -38,27 +39,6 @@ def hist_branch(nd: int) -> str:
     if nd <= MAX_REGISTER_BINS:
         return "registers"
     return "shared" if nd <= MAX_SHARED_BINS else "global"
-
-
-#: (device index, stream handle) -> int32 workspace: the ticket, then the
-#: accumulator; zero between calls on that stream. Keying by the handle
-#: assumes that no stream's handle is reused while work is still queued on
-#: it: PyTorch's own streams never release theirs, but a destroyed
-#: ``torch.cuda.ExternalStream`` whose handle a new stream takes while its
-#: last call is in flight would share that call's accumulator.
-_workspaces: dict = {}
-
-
-def _workspace(device: torch.device, stream: int, nd: int) -> torch.Tensor:
-    key = (device.index, stream)
-    ws = _workspaces.get(key)
-    if ws is None or ws.numel() < nd + 1:
-        # Zeroed once; the kernel leaves it zero. The old one is released
-        # to the allocator on this stream, after the work queued on it.
-        ws = torch.zeros(max(nd, MAX_REGISTER_BINS) + 1, dtype=torch.int32,
-                         device=device)
-        _workspaces[key] = ws
-    return ws
 
 
 def partition_hist(dest: torch.Tensor, *, nd: int,
@@ -84,7 +64,7 @@ def partition_hist(dest: torch.Tensor, *, nd: int,
     out = torch.empty(nd, dtype=torch.int32, device=dest.device)
     branch = hist_branch(nd)
     with cuda_stream(dest) as stream:
-        ws = _workspace(dest.device, stream, nd)
+        ws = workspace(dest.device, stream, nd)
         err = library().repro_partition_hist(
             dest.data_ptr(), None if valid is None else valid.data_ptr(),
             dest.numel(), nd, HIST_BRANCHES.index(branch), ws.data_ptr(),

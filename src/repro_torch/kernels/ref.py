@@ -70,6 +70,37 @@ def bitonic_sort_ref(keys: torch.Tensor, values: torch.Tensor):
     return (torch.gather(keys, -1, order), torch.gather(values, -1, order))
 
 
+def bitonic_network_ref(keys: torch.Tensor, values: torch.Tensor):
+    """The reference's bitonic network over each row of (..., n) pairs, n a
+    power of two: for k = 2, 4, .., n and j = k/2, .., 1, the pair (i,
+    i | j) with bit j of i clear is swapped, keys and values, iff it is
+    strictly out of order, ascending iff (i & k) == 0. Ties come out as the
+    CUDA kernel leaves them; it is not stable. Only the tests and the
+    card's checks use it: the CPU path is ``bitonic_sort_ref``."""
+    *lead, n = keys.shape
+    rows = keys.reshape(-1, n)
+    vals = values.reshape(-1, n)
+    index = torch.arange(n, device=keys.device)
+    k = 2
+    while k <= n:
+        j = k // 2
+        while j >= 1:
+            shape = (rows.shape[0], n // (2 * j), 2, j)
+            kr, vr = rows.reshape(shape), vals.reshape(shape)
+            lo_k, hi_k, lo_v, hi_v = kr[:, :, 0], kr[:, :, 1], vr[:, :, 0], \
+                vr[:, :, 1]
+            ascending = (index.reshape(n // (2 * j), 2, j)[:, 0] & k) == 0
+            swap = torch.where(ascending, lo_k > hi_k, lo_k < hi_k)
+            rows = torch.stack([torch.where(swap, hi_k, lo_k),
+                                torch.where(swap, lo_k, hi_k)], dim=2)
+            vals = torch.stack([torch.where(swap, hi_v, lo_v),
+                                torch.where(swap, lo_v, hi_v)], dim=2)
+            rows, vals = rows.reshape(-1, n), vals.reshape(-1, n)
+            j //= 2
+        k *= 2
+    return rows.reshape(*lead, n), vals.reshape(*lead, n)
+
+
 # ---------------------------------------------------------------------------
 # Runtime-filter kernels: bloom pair and zone-map min/max
 # ---------------------------------------------------------------------------

@@ -20,7 +20,8 @@ from repro_torch.joins.ref import rows_as_set, rows_close
 from repro_torch.joins.slots import BUCKET_SEED, SHUFFLE_SEED
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.bitonic_sort import bitonic_sort_tile
-from repro_torch.kernels.bloom import (bloom_build, bloom_probe,
+from repro_torch.kernels.bloom import (ONE_CLUSTER_KEYS, bloom_build,
+                                       bloom_probe, build_branch,
                                        filter_fits_shared)
 from repro_torch.kernels.build import library
 from repro_torch.kernels.partition_hist import (HIST_BRANCHES, hist_branch,
@@ -221,6 +222,43 @@ def test_bitonic_sorts(cuda, logn):
     gk, gv = bitonic_sort_tile(k, v)
     assert torch.equal(gk, ref.bitonic_sort_ref(k, v)[0])
     assert torch.equal(torch.gather(k, 1, gv.long()), gk)
+    # Keys and values exactly as the reference's network leaves them, ties
+    # included (v holds repeated column ids).
+    wk, wv = ref.bitonic_network_ref(k, v)
+    assert torch.equal(gk, wk) and torch.equal(gv, wv)
+
+
+# The exact network at B = 1, 7 and 133, with distinct values, on ties,
+# all-equal keys, the int32 ends and the whole range.
+@pytest.mark.parametrize("logn", [0, 1, 2, 3, 5, 8, 9, 10, 11, 12])
+@pytest.mark.parametrize("bsz", [1, 7, 133])
+def test_bitonic_equals_the_reference_network(cuda, logn, bsz):
+    n = 1 << logn
+    rng = np.random.default_rng(100 * logn + bsz)
+    cs = _chip_smoke()
+    v = on(cuda, rng.permutation(bsz * n).reshape(bsz, n).astype(np.int32))
+    before = ops.launch_counts()["bitonic_sort_tile"]
+    for kind in cs.SORT_EDGE_KINDS:
+        k = on(cuda, cs.sort_edge_keys(rng, bsz, n, kind))
+        gk, gv = bitonic_sort_tile(k, v)
+        wk, wv = ref.bitonic_network_ref(k, v)
+        assert torch.equal(gk, wk) and torch.equal(gv, wv), kind
+    assert ops.launch_counts()["bitonic_sort_tile"] == before + len(
+        cs.SORT_EDGE_KINDS)
+
+
+# Rows of views that start 1-3 elements past an aligned base: the kernel's
+# scalar loads and stores.
+@pytest.mark.parametrize("n", [8, 2048, 4096])
+def test_bitonic_on_views_equals_the_reference_network(cuda, n):
+    rng = np.random.default_rng(n)
+    keys = on(cuda, rng.integers(-2, 3, 7 * n + 3).astype(np.int32))
+    vals = on(cuda, rng.permutation(7 * n + 3).astype(np.int32))
+    for k0, v0 in ((1, 0), (0, 2), (3, 1)):
+        k, v = keys[k0:k0 + 7 * n].view(7, n), vals[v0:v0 + 7 * n].view(7, n)
+        gk, gv = bitonic_sort_tile(k, v)
+        wk, wv = ref.bitonic_network_ref(k, v)
+        assert torch.equal(gk, wk) and torch.equal(gv, wv), (k0, v0)
 
 
 def test_main_path_on_the_card_equals_the_cpu(cuda):
@@ -293,6 +331,62 @@ def test_bloom_probe_branches_and_edges(cuda, m_bits):
             assert not bool(bloom_probe(kv, empty, k=k).any())
             calls += 3
     assert bloom_probe.filter_launches[branch] == before + calls
+
+
+# Every build branch (one cluster up to ONE_CLUSTER_KEYS keys, blocks beyond,
+# device memory above 2^20 bits) at its edges, counted by branch.
+@pytest.mark.parametrize("n", [1, 31, ONE_CLUSTER_KEYS, ONE_CLUSTER_KEYS + 1,
+                               100_003, 4_194_304])
+@pytest.mark.parametrize("m_bits", [32, 1 << 16, 1 << 20, 1 << 21, 1 << 22])
+def test_bloom_build_branches_equal_plain(cuda, n, m_bits):
+    keys, valid = (on(cuda, a) for a in filter_keys(n, n ^ m_bits))
+    branch = build_branch(n, m_bits)
+    before = bloom_build.branch_launches[branch]
+    for k in (1, 7, 8):
+        assert torch.equal(bloom_build(keys, valid, m_bits=m_bits, k=k),
+                           ref.bloom_build_ref(keys, valid, m_bits, k)), k
+    none = torch.zeros_like(valid)
+    assert not bool(bloom_build(keys, none, m_bits=m_bits, k=8).any())
+    assert bloom_build.branch_launches[branch] == before + 4
+
+
+# Keys and mask on views off a 16-byte boundary, in every branch.
+@pytest.mark.parametrize("n,m_bits", [(ONE_CLUSTER_KEYS, 1 << 16),
+                                      (100_003, 1 << 16),
+                                      (100_003, 1 << 21)])
+def test_bloom_build_on_views_equals_plain(cuda, n, m_bits):
+    keys, valid = (on(cuda, a) for a in filter_keys(n + 3, n))
+    for k0, v0 in ((1, 0), (0, 3), (2, 1), (3, 3)):
+        kv, vv = keys[k0:k0 + n], valid[v0:v0 + n]
+        assert torch.equal(bloom_build(kv, vv, m_bits=m_bits, k=8),
+                           ref.bloom_build_ref(kv, vv, m_bits, 8)), (k0, v0)
+
+
+# Calls in flight on two streams at once, each ORing into its own stream's
+# accumulator; and builds interleaved with histograms on one stream, which
+# share the stream's workspace.
+@pytest.mark.parametrize("m_bits", [1 << 16, 1 << 21])
+def test_bloom_build_two_streams_and_beside_the_histogram(cuda, m_bits):
+    inputs = [tuple(on(cuda, a) for a in filter_keys(100_003, 5 + i))
+              for i in range(2)]
+    want = [ref.bloom_build_ref(k, v, m_bits, 8) for k, v in inputs]
+    streams = [torch.cuda.Stream() for _ in inputs]
+    torch.cuda.synchronize()
+    got = [[], []]
+    for _ in range(20):
+        for i, (s, (k, v)) in enumerate(zip(streams, inputs)):
+            with torch.cuda.stream(s):
+                got[i].append(bloom_build(k, v, m_bits=m_bits, k=8))
+    torch.cuda.synchronize()
+    for i in range(2):
+        assert all(torch.equal(g, want[i]) for g in got[i])
+    d = on(cuda, np.random.default_rng(m_bits).integers(
+        -1, 20_001, 1_000_003).astype(np.int32))
+    hist_want = ref.partition_hist_ref(d, 20_000)
+    k, v = inputs[0]
+    for _ in range(10):
+        assert torch.equal(partition_hist(d, nd=20_000), hist_want)
+        assert torch.equal(bloom_build(k, v, m_bits=m_bits, k=8), want[0])
 
 
 @pytest.mark.parametrize("n", [0, 1, 31, 1000, 100_003, 3_000_000])
