@@ -22,7 +22,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    ties, all-equal keys and the int32 ends, and on views; the bloom build
    in every branch, on both sides of its one-cluster limit, m_bits 32 to
    2^22, k = 1, 7, 8, all invalid, on views, from two streams at once and
-   interleaved with the histogram on one stream);
+   interleaved with the histogram on one stream; key_range bit for bit in
+   both branches, n from 0 to 2^24 across its one-block limit, all, none
+   and half valid, one valid key at either int32 end, on views, from two
+   streams at once and interleaved with the histogram and the bloom build
+   on one stream);
 4. the main path: q1-q12 under the four default strategies on
    ``generate(scale, p=8, seed=0)`` on the card: one warm-up pass, then the
    reported pass, with every launch count set to 0 just before and read
@@ -47,7 +51,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    one pass under ``torch.profiler``; then the filter kernels timed at
    their largest inputs, as in phase 4 (the bloom probe also at four times
    the input and with L2 emptied; the bloom build as the bitonic sort in
-   phase 4, on 4,096 and on 32 keys);
+   phase 4, on 4,096 and on 32 keys; key_range at its input, four times
+   it and 32 keys, beside ``torch.aminmax(keys[valid])``, with its device
+   activities a call and its host cost part by part);
 5b. reordering and the hypercube on the same catalog: q13-q15 and q35-q37
    under ``ReorderingStrategy(s)`` for each default strategy, and q35-q37
    also with ``hypercube=False``, after a warm-up pass: every run gives the
@@ -57,17 +63,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    read just after); the cube's network bytes beside the binary arm's; one
    pass under ``torch.profiler``; then ``tiled_probe3`` timed at its
    largest input, as in phase 4;
-6. cross-checks: the decisions at ``generate(0.1, 4, 42)`` of q1-q15, the
-   unfiltered q19-q23 and q35-q37 under the four default strategies, of
-   q13-q15 and q35-q37 under ``Reorder(RelJoin)``, and ``optimize``'s
-   reordering and plan signature for every query, equal the golden fixture;
-   the filtered runs' filters and methods there equal those of the same
-   runs on the CPU; and at scale 3 the gather path (``use_kernel=False``)
-   gives the rows of the kernel path.
+5c. the text-only and skew-target suites on the same catalog: q16-q18 and
+   q24-q34, parsed from SQL text, under the four default strategies, after
+   a warm-up pass, with launch counts set to 0 just before the reported
+   pass and read just after: every strategy gives the same rows, K1, K2
+   and K3 launched; wall ms per run and network, local and straggler bytes
+   per strategy; one pass under ``torch.profiler``;
+6. cross-checks: the decisions at ``generate(0.1, 4, 42)`` of q1-q37 under
+   the four default strategies and of q13-q15 and q35-q37 under
+   ``Reorder(RelJoin)`` (154), and ``optimize``'s reordering and plan
+   signature for every query (37), equal the golden fixture; the filtered
+   runs' filters and methods there equal those of the same runs on the
+   CPU; and at scale 3 the gather path (``use_kernel=False``) gives the
+   rows of the kernel path on q1-q12, q16-q18 and q24-q34.
 
 With ``--save-inputs PATH`` it saves the inputs at which it timed the
-bitonic sort and the bloom build, for ``tools/time_sort_bloom.py``, which
-times another tree's kernels at them.
+bitonic sort, the bloom build and key_range, for
+``tools/time_sort_bloom.py``, which times another tree's kernels at them.
 
 Each phase prints its wall time. It prints one JSON line of kernel
 measurements, the card's name and power limit, and as its last line
@@ -638,6 +650,7 @@ def check_filter_kernels_edge_cases(dev) -> None:
     print(f"  key_range: {n_range} cases equal to the plain version")
     check_bloom_probe_edge_cases(dev, rng)
     check_bloom_build_edge_cases(dev, rng)
+    check_key_range_edge_cases(dev)
 
 
 def check_bloom_probe_edge_cases(dev, rng) -> None:
@@ -775,6 +788,113 @@ def check_bloom_build_edge_cases(dev, rng) -> None:
     print(f"  bloom_build: {n_cases} more cases equal to the plain version "
           f"(one-cluster limit {ONE_CLUSTER_KEYS} keys); branches of the edge "
           f"cases {took}")
+
+
+def check_key_range_edge_cases(dev) -> None:
+    """key_range bit for bit against its plain version in both branches
+    (one block up to ``ONE_BLOCK_KEYS`` keys, a grid beyond): n on both
+    sides of the limit and up to 2^24, every key valid, none and half;
+    only INT32_MIN valid and only INT32_MAX valid, each in a random
+    position; keys and mask on views off a 16-byte boundary; calls in
+    flight on two streams at once; and calls interleaved with the
+    histogram's and the bloom build's on one stream, which share the
+    stream's workspace."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bloom import bloom_build
+    from repro_torch.kernels.partition_hist import partition_hist
+    from repro_torch.kernels.zone_map import (ONE_BLOCK_KEYS, RANGE_BRANCHES,
+                                              key_range, range_branch)
+
+    branches = dict(key_range.branch_launches)
+    n_cases = 0
+    lo32, hi32 = -(2 ** 31), 2 ** 31 - 1
+
+    def case(keys, valid, label):
+        nonlocal n_cases
+        got = key_range(keys, valid)
+        want = ref.key_range_ref(keys.reshape(-1), valid.reshape(-1))
+        require(torch.equal(got, want),
+                f"key_range {label}: {got.tolist()} != {want.tolist()}")
+        n_cases += 1
+
+    def keys_of(n, seed, low=lo32 + 1, high=hi32):
+        g = np.random.default_rng(seed)
+        return torch.from_numpy(g.integers(low, high, n, dtype=np.int64)
+                                .astype(np.int32)).to(dev)
+
+    for n in (0, 1, 31, 32, 33, ONE_BLOCK_KEYS - 1, ONE_BLOCK_KEYS,
+              ONE_BLOCK_KEYS + 1, 100_003, 1 << 24):
+        keys = keys_of(n, n)
+        g = np.random.default_rng(n + 1)
+        for mask in ("all", "none", "half"):
+            valid = torch.from_numpy(
+                np.full(n, mask == "all") if mask != "half"
+                else g.random(n) < 0.5).to(dev)
+            case(keys, valid, f"n={n} {mask} valid")
+        if n:
+            # One valid key, at an int32 end, the rest invalid: the
+            # encodings' ends (INT32_MAX - lo and hi ^ 2^31 at 2^32 - 1 and
+            # at 0).
+            for end in (lo32, hi32):
+                at = int(g.integers(0, n))
+                k = keys.clone()
+                k[at] = end
+                only = torch.zeros(n, dtype=torch.bool, device=dev)
+                only[at] = True
+                case(k, only, f"n={n} only {end} valid")
+                both = torch.ones(n, dtype=torch.bool, device=dev)
+                case(k, both, f"n={n} {end} among all valid")
+    for n in (33, ONE_BLOCK_KEYS, ONE_BLOCK_KEYS + 1, 100_003):
+        keys = keys_of(n + 3, n + 2)
+        valid = torch.from_numpy(np.random.default_rng(n).random(n + 3)
+                                 < 0.5).to(dev)
+        for k0, v0 in ((1, 0), (0, 3), (2, 1), (3, 3)):
+            case(keys[k0:k0 + n], valid[v0:v0 + n],
+                 f"n={n} views +{k0} +{v0}")
+    if dev.type == "cuda":
+        # Two streams at once, each grid folding into its stream's
+        # accumulator.
+        n = 4 * ONE_BLOCK_KEYS + 5
+        inputs = [(keys_of(n, 30 + i, -1000 * (i + 1), 1000 * (i + 1)),
+                   torch.ones(n, dtype=torch.bool, device=dev))
+                  for i in range(2)]
+        want = [ref.key_range_ref(*kv) for kv in inputs]
+        got = on_two_streams(lambda kv: key_range(*kv), inputs)
+        require(all(torch.equal(g, want[i])
+                    for i in range(2) for g in got[i]),
+                f"key_range {range_branch(n)} on two streams at once")
+        n_cases += 40
+    # Interleaved with the histogram and the bloom build on one stream: the
+    # three kernels take the stream's workspace and leave it zero.
+    n = 4 * ONE_BLOCK_KEYS + 5
+    keys = keys_of(n, 40)
+    valid = torch.from_numpy(np.random.default_rng(41).random(n)
+                             < 0.5).to(dev)
+    dest = torch.from_numpy(np.random.default_rng(42).integers(
+        -1, 20_001, 1_000_003).astype(np.int32)).to(dev)
+    hist_want = ref.partition_hist_ref(dest, 20_000)
+    words_want = ref.bloom_build_ref(keys, valid, 1 << 21, 8)
+    range_want = ref.key_range_ref(keys, valid)
+    for _ in range(10):
+        require(torch.equal(key_range(keys, valid), range_want),
+                "key_range beside partition_hist and bloom_build")
+        require(torch.equal(partition_hist(dest, nd=20_000), hist_want),
+                "partition_hist beside key_range")
+        require(torch.equal(key_range(keys, valid), range_want),
+                "key_range after partition_hist")
+        require(torch.equal(bloom_build(keys, valid, m_bits=1 << 21, k=8),
+                            words_want), "bloom_build beside key_range")
+        n_cases += 2
+    took = {b: key_range.branch_launches[b] - branches[b]
+            for b in RANGE_BRANCHES}
+    require(all(v > 0 for v in took.values()),
+            f"key_range branches launched {took}")
+    print(f"  key_range: {n_cases} more cases bit-identical to the plain "
+          f"version (one-block limit {ONE_BLOCK_KEYS} keys); branches of "
+          f"the edge cases {took}")
 
 
 # ---------------------------------------------------------------------------
@@ -935,7 +1055,8 @@ def run_main_path(catalog):
 WATCHED = {"partition_hist": ("hist_registers", "hist_bins"),
            "bloom_probe": ("bloom_probe_kernel",),
            "bloom_build": ("bloom_build_",),
-           "bitonic_sort_tile": ("bitonic_sort_kernel",)}
+           "bitonic_sort_tile": ("bitonic_sort_kernel",),
+           "key_range": ("key_range", "empty_range")}
 
 
 def profile_pass(run_all) -> None:
@@ -1106,25 +1227,44 @@ def case_times(cases: dict, call, reps: int) -> dict:
             for label, args in cases.items()}
 
 
+def range_cases(keys, valid) -> dict:
+    """The inputs at which key_range is timed: the path's largest
+    (``main``), its keys four times over, and the fixed cost of a call (32
+    keys)."""
+    flat_k, flat_v = keys.reshape(-1), valid.reshape(-1)
+    return {"main": (keys, valid),
+            "4x": (flat_k.repeat(4), flat_v.repeat(4)),
+            "fixed cost": (flat_k[:32], flat_v[:32])}
+
+
 def sort_bloom_kernel_times(k, v, keys, valid, m_bits: int,
-                            n_hashes: int) -> dict:
-    """The bitonic sort's and the bloom build's times at ``sort_cases`` and
-    ``bloom_cases`` (``case_times``), and their device activities a call at
-    the main input. It calls only the two wrappers, so it times any tree of
-    the port (``tools/time_sort_bloom.py``)."""
+                            n_hashes: int, range_keys=None,
+                            range_valid=None) -> dict:
+    """The bitonic sort's, the bloom build's and, where its inputs are
+    given, key_range's times at ``sort_cases``, ``bloom_cases`` and
+    ``range_cases`` (``case_times``), and their device activities a call at
+    the main input. It calls only the wrappers, so it times any tree of the
+    port (``tools/time_sort_bloom.py``)."""
     from repro_torch.kernels.bitonic_sort import bitonic_sort_tile
     from repro_torch.kernels.bloom import bloom_build
+    from repro_torch.kernels.zone_map import key_range
 
     def build(kk, vv):
         return bloom_build(kk, vv, m_bits=m_bits, k=n_hashes)
 
-    return {"bitonic_sort_tile": case_times(sort_cases(k, v),
-                                            bitonic_sort_tile, 50),
-            "bloom_build": case_times(bloom_cases(keys, valid), build, 100),
-            "activities": {
-                "bitonic_sort_tile": device_activities(
-                    lambda: bitonic_sort_tile(k, v)),
-                "bloom_build": device_activities(lambda: build(keys, valid))}}
+    out = {"bitonic_sort_tile": case_times(sort_cases(k, v),
+                                           bitonic_sort_tile, 50),
+           "bloom_build": case_times(bloom_cases(keys, valid), build, 100),
+           "activities": {
+               "bitonic_sort_tile": device_activities(
+                   lambda: bitonic_sort_tile(k, v)),
+               "bloom_build": device_activities(lambda: build(keys, valid))}}
+    if range_keys is not None:
+        out["key_range"] = case_times(range_cases(range_keys, range_valid),
+                                      key_range, 100)
+        out["activities"]["key_range"] = device_activities(
+            lambda: key_range(range_keys, range_valid))
+    return out
 
 
 def measure_sort(k, v, launches: int) -> dict:
@@ -1204,8 +1344,11 @@ def print_cases(name: str, rows: dict, library: str | None) -> None:
     for label, r in rows.items():
         require(r["max_abs_err"] == 0,
                 f"{name} disagrees with its plain version at {r['shape']}")
-        lib = (f", {library} {r['library_ms']:.4f} ms (device "
-               f"{r['library_device_ms']:.4f} ms)" if library else "")
+        lib = ""
+        if library:
+            lib = f", {library} {r['library_ms']:.4f} ms"
+            if "library_device_ms" in r:
+                lib += f" (device {r['library_device_ms']:.4f} ms)"
         print(f"    {label:10s} {r['shape']:44s} events {r['ms']:.4f} ms, "
               f"device {r['device_ms']:.4f} ms, L2 emptied "
               f"{r['device_cold_ms']:.4f} ms; bound {r['bound_ms']:.6f} ms "
@@ -1418,11 +1561,6 @@ def run_filter_path(catalog):
 
 
 def measure_filter_kernels(calls: dict, launches: dict) -> list:
-    import torch
-
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.zone_map import key_range
-
     rows = []
 
     _, (keys, valid), kw = calls["bloom_build"]
@@ -1434,25 +1572,100 @@ def measure_filter_kernels(calls: dict, launches: dict) -> list:
                                     launches["bloom_probe"]))
 
     _, (keys, valid), _ = calls["key_range"]
-    flat_k, flat_v = keys.reshape(-1), valid.reshape(-1)
-    n = flat_k.numel()
-    got = key_range(keys, valid)
-    want = ref.key_range_ref(flat_k, flat_v)
-    b_ms, b_by = bound(5 * n + 8, 2 * n)
-    rows.append(dict(
-        name="key_range", route="cuda",
-        source="src/repro_torch/csrc/zone_map.cu",
-        replaces="src/repro/kernels/zone_map.py:75",
-        launches=launches["key_range"],
-        max_abs_err=float((got.long() - want.long()).abs().max()),
-        **time_kernel(lambda: key_range(keys, valid), 200),
-        plain_ms=cuda_ms(lambda: ref.key_range_ref(flat_k, flat_v), 50),
-        bound_ms=b_ms, bound_by=b_by,
-        # The masked keys' compaction syncs the host on every call.
-        library_ms=cuda_ms(lambda: torch.aminmax(flat_k[flat_v]), 50),
-        shape=f"{tuple(keys.shape)} valid={int(flat_v.sum())}"))
+    rows.append(measure_key_range(keys, valid, launches["key_range"]))
     report_kernels(rows)
     return rows
+
+
+def key_range_least_work(n: int) -> tuple[float, float]:
+    """Least work of key_range: each key and mask byte read once and the
+    two words written once; one compare each way a key. Returns (bytes,
+    operations)."""
+    return 5.0 * n + 8, 2.0 * n
+
+
+def measure_key_range(keys, valid, launches: int) -> dict:
+    """K6 at the filter path's largest call: the JSON row, and the
+    ``range_cases`` readings, each bit for bit against the plain version
+    and beside its bound, the plain version's time and
+    ``torch.aminmax(keys[valid])``; its device activities a call, and what
+    the wrapper costs on the host, part by part."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.zone_map import key_range, range_branch
+
+    cases = range_cases(keys, valid)
+    times = case_times(cases, key_range, 100)
+    rows = {}
+    for label, (kk, vv) in cases.items():
+        flat_k, flat_v = kk.reshape(-1), vv.reshape(-1)
+        n = flat_k.numel()
+        want = ref.key_range_ref(flat_k, flat_v)
+        b_ms, b_by = bound(*key_range_least_work(n))
+        # The masked keys' compaction syncs the host on every call, so
+        # its device time alone cannot be queued behind a sleep.
+        lib = lambda: torch.aminmax(flat_k[flat_v])  # noqa: E731
+        rows[label] = dict(
+            name="key_range", route="cuda",
+            source="src/repro_torch/csrc/zone_map.cu",
+            replaces="src/repro/kernels/zone_map.py:75",
+            launches=launches,
+            max_abs_err=float((key_range(kk, vv).long() - want.long()).abs()
+                              .max()),
+            **times[label],
+            plain_ms=cuda_ms(lambda: ref.key_range_ref(flat_k, flat_v), 50),
+            bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(lib, 50),
+            shape=f"{tuple(kk.shape)} valid={int(flat_v.sum())} "
+                  f"{range_branch(n)}")
+    print(f"  key_range: device activities a call "
+          f"{device_activities(lambda: key_range(keys, valid))}")
+    print_cases("key_range", rows, "torch.aminmax(keys[valid])")
+    print("  key_range on the host, us a call: "
+          f"{key_range_host_split(keys, valid)}")
+    return rows["main"]
+
+
+def key_range_host_split(keys, valid, reps: int = 2000) -> str:
+    """What one key_range call costs on the host, part by part, by the
+    host clock over ``reps`` calls of each part: the flat views of keys
+    and mask (``flat_keys``, ``flat_valid``), the output's
+    ``torch.empty``, the ctypes call that launches the kernel, and the
+    whole wrapper."""
+    import torch
+
+    from repro_torch.kernels import zone_map
+    from repro_torch.kernels.build import library
+    from repro_torch.kernels.launch import flat_keys, flat_valid, workspace
+
+    flat = flat_keys(keys)
+    v = flat_valid(valid, flat)
+    out = torch.empty(2, dtype=torch.int32, device=flat.device)
+    lib = library()
+    stream = torch.cuda.current_stream().cuda_stream
+    branch = zone_map.range_branch(flat.numel())
+    code = zone_map.RANGE_BRANCHES.index(branch)
+    ws = (None if branch == "block"
+          else workspace(flat.device, stream, 2).data_ptr())
+    parts = {
+        "flat_keys+flat_valid": lambda: flat_valid(valid, flat_keys(keys)),
+        "torch.empty": lambda: torch.empty(2, dtype=torch.int32,
+                                           device=flat.device),
+        "ctypes call": lambda: lib.repro_key_range(
+            flat.data_ptr(), v.data_ptr(), flat.numel(), code, ws,
+            out.data_ptr(), stream),
+        "wrapper": lambda: zone_map.key_range(keys, valid)}
+    readings = []
+    for name, fn in parts.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        readings.append(f"{name} {(t1 - t0) / reps * 1e6:.2f}")
+    return ", ".join(readings)
 
 
 def bloom_probe_least_work(flat_k, words, k: int) -> tuple[float, float]:
@@ -1530,6 +1743,94 @@ def report_kernels(rows: list) -> None:
               f"{r['bound_ms']:.5f} "
               f"ms ({r['bound_by']}), plain {r['plain_ms']:.4f} ms, library "
               f"{lib}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 5c: the text-only and skew-target suites
+# ---------------------------------------------------------------------------
+
+def text_suite():
+    """q16-q18 and q24-q34, parsed from their SQL text: the queries of the
+    golden fixture that the earlier phases leave out."""
+    from repro_torch.sql import skewed_queries, text_queries
+    return {**skewed_queries(), **text_queries()}
+
+
+def run_text_path(catalog) -> None:
+    """q16-q18 and q24-q34 under the four default strategies on the main
+    path's catalog (uniform keys: the skew-aware strategy is a later
+    slice): a warm-up pass, then the reported pass with every launch count
+    set to 0 just before and read just after, then one pass under
+    ``torch.profiler``. Every strategy must give the same rows, and K1, K2
+    and K3 must have launched."""
+    import numpy as np
+    import torch
+
+    from repro_torch.joins.ref import rows_as_set, rows_close
+    from repro_torch.kernels import ops
+    from repro_torch.sql import Executor, default_strategies
+
+    queries, strategies = text_suite(), default_strategies()
+    require(len(queries) == 14, f"q16-q18, q24-q34: {sorted(queries)}")
+
+    def run_all():
+        for qname, plan in queries.items():
+            for s in strategies:
+                yield qname, s, Executor(catalog, s).execute(plan)
+
+    t_warm = time.perf_counter()
+    for _ in run_all():  # first calls of every torch op, not reported
+        pass
+    print(f"  warm-up pass: {time.perf_counter() - t_warm:.1f} s")
+
+    results: dict = {}
+    suite: dict = {}
+    ops.reset_launch_counts()
+    t_phase = time.perf_counter()
+    before = ops.launch_counts()
+    for qname, s, res in run_all():
+        after = ops.launch_counts()
+        delta = ",".join(str(after[k] - before[k]) for k in after)
+        before = after
+        cols = res.table.to_numpy()
+        results[(qname, s.name)] = cols
+        tot = suite.setdefault(s.name, [0.0, 0.0, 0.0, 0.0])
+        for i, v in enumerate((res.network_bytes, res.local_bytes,
+                               res.straggler_bytes, res.wall_time_s)):
+            tot[i] += v
+        print(f"  {qname:26s} {s.name:13s} "
+              f"{','.join(m.value for m in res.methods()):52s} "
+              f"net={res.network_bytes:.0f} local={res.local_bytes:.0f} "
+              f"straggler={res.straggler_bytes:.0f} rows={res.rows} "
+              f"wall={res.wall_time_s * 1e3:.2f}ms launches={delta}")
+        for name, c in cols.items():
+            if c.dtype.kind == "f":
+                require(bool(np.isfinite(c).all()),
+                        f"{qname} {s.name}: non-finite {name}")
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    print(f"  text suites: {time.perf_counter() - t_phase:.1f} s for "
+          f"{len(results)} runs; launches {launches}")
+    for name, (net, local, strag, wall) in suite.items():
+        print(f"  suite {name:13s} network {net:.0f}, local {local:.0f}, "
+              f"straggler {strag:.0f} bytes; wall {wall * 1e3:.2f} ms")
+    for name in MAIN_KERNELS:
+        require(launches[name] > 0,
+                f"kernel {name} never launched on the text suites")
+
+    for qname in queries:
+        first = rows_as_set(results[(qname, strategies[0].name)])
+        gap = 0.0
+        for s in strategies[1:]:
+            other = rows_as_set(results[(qname, s.name)])
+            require(rows_close(first, other),
+                    f"{qname}: {s.name} rows differ from "
+                    f"{strategies[0].name}")
+            gap = max(gap, float_gap(first, other))
+        print(f"  {qname:26s} {len(first)} rows agree across strategies; "
+              f"worst relative gap {gap:.3e}")
+
+    profile_pass(run_all)
 
 
 # ---------------------------------------------------------------------------
@@ -1691,10 +1992,14 @@ def check_golden(catalog) -> None:
                                  optimize, signature)
 
     gold = json.loads(GOLDEN.read_text())["queries"]
+    queries = {**every_query(), **text_suite(), **filtered_queries(),
+               **cyclic_queries()}
+    require(sorted(queries) == sorted(gold),
+            f"queries {sorted(set(gold) - set(queries))} of the golden "
+            "fixture missing")
     reordered = {**misordered_queries(), **cyclic_queries()}
     n = n_dp = 0
-    for qname, plan in {**every_query(), **filtered_queries(),
-                        **cyclic_queries()}.items():
+    for qname, plan in queries.items():
         strategies = [(s.name, s) for s in default_strategies()]
         if qname in reordered:
             strategies.append(("Reorder(RelJoin(w=1))",
@@ -1713,9 +2018,11 @@ def check_golden(catalog) -> None:
         require(dp == gold[qname]["dp"],
                 f"{qname}: optimize gives {dp}, not the golden dp entry")
         n_dp += 1
-    print(f"  golden decisions at generate(0.1, 4, 42), q1-q15, unfiltered "
-          f"q19-q23 and q35-q37 (Reorder(RelJoin) on q13-q15 and q35-q37): "
-          f"{n} of {n} equal; dp entries {n_dp} of {n_dp} equal")
+    require(n == sum(len(e["strategies"]) for e in gold.values()),
+            f"{n} golden decisions checked")
+    print(f"  golden decisions at generate(0.1, 4, 42), q1-q37 under the "
+          f"four default strategies, Reorder(RelJoin) on q13-q15 and "
+          f"q35-q37: {n} of {n} equal; dp entries {n_dp} of {n_dp} equal")
 
 
 def check_filters_against_cpu(catalog) -> None:
@@ -1755,7 +2062,7 @@ def check_gather_path(dev) -> None:
 
     catalog = generate(3, 8, 0, device=dev)
     n = 0
-    for qname, plan in all_queries().items():
+    for qname, plan in {**all_queries(), **text_suite()}.items():
         for s in default_strategies():
             k = Executor(catalog, s, use_kernel=True).execute(plan)
             g = Executor(catalog, s, use_kernel=False).execute(plan)
@@ -1766,8 +2073,8 @@ def check_gather_path(dev) -> None:
                                rows_as_set(g.table.to_numpy())),
                     f"{qname} {s.name}: gather path rows differ")
             n += 1
-    print(f"  scale 3: use_kernel=False rows equal use_kernel=True in "
-          f"{n} of {n} runs")
+    print(f"  scale 3, q1-q12, q16-q18 and q24-q34: use_kernel=False rows "
+          f"equal use_kernel=True in {n} of {n} runs")
 
 
 # ---------------------------------------------------------------------------
@@ -1818,8 +2125,9 @@ def main() -> int:
     parser.add_argument("--scale", type=float, default=30.0,
                         help="main-path catalog scale (default 30)")
     parser.add_argument("--save-inputs", type=Path, default=None,
-                        help="save the bitonic sort's and the bloom build's "
-                             "timed inputs here (torch.save)")
+                        help="save the bitonic sort's, the bloom build's "
+                             "and key_range's timed inputs here "
+                             "(torch.save)")
     args = parser.parse_args()
 
     import torch
@@ -1869,12 +2177,14 @@ def main() -> int:
         rows += measure_filter_kernels(calls, launches)
         if args.save_inputs is not None:
             _, bloom_args, kw = calls["bloom_build"]
+            _, range_args, _ = calls["key_range"]
             args.save_inputs.parent.mkdir(parents=True, exist_ok=True)
             torch.save({"sort": [a.cpu() for a in sort_args],
                         "bloom": [a.cpu() for a in bloom_args],
-                        "m_bits": kw["m_bits"], "k": kw["k"]},
+                        "m_bits": kw["m_bits"], "k": kw["k"],
+                        "range": [a.cpu() for a in range_args]},
                        args.save_inputs)
-            print(f"  saved the timed sort and build inputs to "
+            print(f"  saved the timed sort, build and key_range inputs to "
                   f"{args.save_inputs}")
 
     with phase("5b. reordering and the hypercube"):
@@ -1882,6 +2192,9 @@ def main() -> int:
         print("  tiled_probe3 timing at the reorder path's largest input "
               f"({smi}):")
         rows += measure_probe3(calls, launches)
+
+    with phase("5c. the text-only and skew-target suites"):
+        run_text_path(catalog)
         del catalog
 
     with phase("6. cross-checks"):

@@ -41,7 +41,7 @@ SIGNATURES = {
     "repro_bitonic_sort": (_P, _P, _I, _I, _P, _P, _P),
     "repro_bloom_build": (_P, _P, _LL, _I, _I, _U, _U, _I, _P, _P, _P),
     "repro_bloom_probe": (_P, _LL, _P, _I, _I, _U, _U, _I, _P, _P),
-    "repro_key_range": (_P, _P, _LL, _P, _P),
+    "repro_key_range": (_P, _P, _LL, _I, _P, _P, _P),
 }
 
 #: ptxas reports and timings of the last build in this process.

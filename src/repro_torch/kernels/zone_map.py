@@ -10,6 +10,19 @@ itself, such as a date window on ``d_date_sk`` — it is exact.
 ``ref.py``. An empty or all-invalid build gives the empty interval
 ``[INT32_MAX, INT32_MIN]``, whose probe rejects every row. ``range_probe``
 and ``merge_ranges`` are plain tensor code, as in the reference.
+
+The reduce is bound by bytes, but at the filter path's inputs (a few
+hundred keys) by the cost of a launch: the kernel this replaces was two
+device activities a call (a one-thread kernel setting the empty interval,
+then the reduce), and two host fills on empty input. Now a call is one
+launch with no fill, empty input included, in one of two branches chosen
+here from the number of keys (``range_branch``), passed to the kernel as a
+code and counted in ``key_range.branch_launches``: up to
+``ONE_BLOCK_KEYS`` keys one block reduces them and writes both words;
+beyond, the blocks of a grid fold into the per-stream workspace's
+accumulator (``launch.workspace``, shared with ``partition_hist`` and
+``bloom_build``) as ``INT32_MAX - lo`` and ``hi ^ 0x80000000``, which are
+zero at the identities, and the last block decodes them into the output.
 """
 
 from __future__ import annotations
@@ -18,7 +31,22 @@ import torch
 
 from . import ref
 from .build import check, library
-from .launch import cuda_stream, flat_keys, flat_valid, require_kernel_input
+from .launch import (cuda_stream, flat_keys, flat_valid, require_kernel_input,
+                     workspace)
+
+#: Keys up to which one block reduces them all, with no workspace and no
+#: global atomic: the filter path's builds (8 x 45 keys at scale 30) take
+#: this branch. The largest n at which one block measured no slower than
+#: the grid on an H100 (``tools/time_sort_bloom.py --range-sweep``;
+#: PERF.md): at 16,384 keys the grid is faster.
+ONE_BLOCK_KEYS = 12_288
+#: The kernel's branch codes, by position.
+RANGE_BRANCHES = ("block", "blocks")
+
+
+def range_branch(n: int) -> str:
+    """The kernel branch that reduces ``n`` keys."""
+    return "block" if n <= ONE_BLOCK_KEYS else "blocks"
 
 
 def key_range(keys: torch.Tensor, valid: torch.Tensor | None = None
@@ -31,15 +59,17 @@ def key_range(keys: torch.Tensor, valid: torch.Tensor | None = None
         return ref.key_range_ref(flat, v)
     require_kernel_input("key_range", flat, v)
     out = torch.empty(2, dtype=torch.int32, device=flat.device)
-    if not flat.numel():
-        out[0], out[1] = ref.INT32_MAX, ref.INT32_MIN
-        return out
+    n = flat.numel()
+    branch = range_branch(n)
     with cuda_stream(flat) as stream:
+        ws = (None if branch == "block"
+              else workspace(flat.device, stream, 2).data_ptr())
         err = library().repro_key_range(
-            flat.data_ptr(), v.data_ptr(), flat.numel(), out.data_ptr(),
-            stream)
+            flat.data_ptr() if n else None, v.data_ptr() if n else None, n,
+            RANGE_BRANCHES.index(branch), ws, out.data_ptr(), stream)
     check(err, "key_range")
     key_range.launches += 1
+    key_range.branch_launches[branch] += 1
     return out
 
 
@@ -58,3 +88,6 @@ def range_probe(keys: torch.Tensor, lo_hi: torch.Tensor) -> torch.Tensor:
 
 
 key_range.launches = 0  # type: ignore[attr-defined]
+#: Launches by kernel branch (``range_branch``).
+key_range.branch_launches = dict.fromkeys(  # type: ignore[attr-defined]
+    RANGE_BRANCHES, 0)

@@ -1,12 +1,18 @@
-"""TPC-DS-shaped query suites as hand-built logical plans: the baseline
-q1-q12, the mis-ordered planner targets q13-q15, the runtime-filter targets
-q19-q23 and the cyclic hypercube targets q35-q37.
+"""TPC-DS-shaped query suite, as in the JAX package.
 
-Their structural signatures equal those of the JAX package's plans for the
-same queries: its SQL texts for q1-q23 (the reference pins
-``signature(parse_sql(text)) == signature(hand_built())``), its hand-built
-plans for q35-q37, whose closing edges have no SQL form. The SQL text front
-end and the skew suite come with later slices of the port.
+Every query is **SQL text** (``SQL_TEXTS``), lowered through the text front
+end (``sql.parser`` -> ``sql.binder``) into a logical plan over the
+synthetic star schema. q1-q23 additionally keep their original hand-built
+plan constructors (``HAND_BUILT``) as a structural reference: the round-trip
+test pins ``signature(parse_sql(text)) == signature(hand_built())`` for each,
+so the front end can never silently drift from the plans the rest of the
+suite was engineered around. q24+ exist only as text — the front end is
+their sole producer. The cyclic hypercube targets q35-q37 are hand-built
+only: their closing edges have no SQL form.
+
+The texts, the hand-built plans and the registries are the JAX package's
+(pure Python, no tensors); the port's tests hold every parsed plan's
+signature and selectivities against the reference's.
 
 The suite covers the decision space the paper evaluates:
 
@@ -14,7 +20,8 @@ The suite covers the decision space the paper evaluates:
   * joins whose build side is < Spark's 10MB absolute threshold but NOT
     relatively small (k < k0) — where AQE over-broadcasts (paper §5.4),
   * joins of aggregated intermediates (q39's shape, a ~ p),
-  * fact-to-large-dim joins (shuffle territory), semi and anti joins.
+  * fact-to-large-dim joins (shuffle territory), semi/anti joins and outer
+    joins.
 
 Engine contract: probe side on the LEFT, unique-key build side on the RIGHT
 (Spark's BuildRight).
@@ -22,9 +29,10 @@ Engine contract: probe side on the LEFT, unique-key build side on the RIGHT
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict
 
 from ..core.selection import JoinType
+from .binder import parse_sql
 from .logical import Aggregate, Filter, Join, Node, Project, Scan
 
 
@@ -140,8 +148,10 @@ def q12_anti() -> Node:
 
 
 # ---------------------------------------------------------------------------
-# Mis-ordered queries (join-reordering targets): each is written in an order
-# the System-R DP improves on.
+# Deliberately mis-ordered queries (planner targets): the written join order
+# is provably suboptimal under the cost model — the System-R DP must find a
+# strictly cheaper order. Kept out of all_queries() so the baseline suite's
+# shape is unchanged; use misordered_queries() / every_query().
 # ---------------------------------------------------------------------------
 
 
@@ -178,6 +188,45 @@ def q15_late_filter() -> Node:
     j = Join(j, Scan("item"), "ss_item_sk", "i_item_sk")
     f = Filter(j, "i_category", "lt", 1, selectivity=0.1)
     return Aggregate(f, "c_region", (("ss_sales_price", "sum"),))
+
+
+# ---------------------------------------------------------------------------
+# Skewed queries (skew-aware selection targets): each centers on a
+# fact x large-dim join in shuffle territory (k < k0) whose fact-side FK is
+# Zipf-hot when the catalog is generated with skew > 0. Under uniform keys
+# these are ordinary shuffle-hash joins; under Zipf >= ~1.2 the straggler
+# cost makes SkewAwareStrategy switch them to SALTED_SHUFFLE_HASH. Run them
+# against ``generate(..., skew=z)`` catalogs. (SkewAwareStrategy and the
+# salted join come with a later slice of the port; until then they run
+# under the four default strategies on uniform keys.)
+# ---------------------------------------------------------------------------
+
+
+def q16_hot_customer() -> Node:
+    """The canonical skew target: fact x customer (k ~ 1.7 << k0) with a
+    Zipf-hot ss_customer_sk — one hot customer draws ~20% of the fact."""
+    j = Join(_ss(), Scan("customer"), "ss_customer_sk", "c_customer_sk")
+    return Aggregate(j, "c_region", (("ss_net_profit", "sum"),))
+
+
+def q17_hot_customer_star() -> Node:
+    """Skewed shuffle join feeding a reporting star: the hot customer join
+    runs first (maximum straggler exposure), then two broadcast dims whose
+    skew-invariant costs must NOT change under skew."""
+    j = Join(_ss(), Scan("customer"), "ss_customer_sk", "c_customer_sk")
+    j = Join(j, Scan("store"), "ss_store_sk", "s_store_sk")
+    j = Join(j, Filter(Scan("date_dim"), "d_month", "eq", 6,
+                       selectivity=1 / 12), "ss_sold_date_sk", "d_date_sk")
+    return Aggregate(j, "c_region", (("ss_sales_price", "sum"),))
+
+
+def q18_hot_catalog_customer() -> Node:
+    """Catalog-channel variant: the date join first widens the fact rows
+    (so the probe side is the larger one at every scale), then the
+    Zipf-hot cs_bill_customer_sk shuffle join hits the straggler."""
+    j = Join(_cs(), Scan("date_dim"), "cs_ship_date_sk", "d_date_sk")
+    j = Join(j, Scan("customer"), "cs_bill_customer_sk", "c_customer_sk")
+    return Aggregate(j, "c_region", (("cs_sales_price", "sum"),))
 
 
 # ---------------------------------------------------------------------------
@@ -262,8 +311,10 @@ def q23_semi_join_stores() -> Node:
 
 # ---------------------------------------------------------------------------
 # Cyclic join cores (hypercube multi-way targets): the closing edge of each
-# cycle is a column-to-column equality between two *build-side* columns. The
-# binary engine evaluates it as a post-join eqcol residual; the hypercube
+# cycle is a column-to-column equality between two *build-side* columns —
+# inexpressible in the suite's SQL dialect (single-equality ON, literal-only
+# WHERE), so q35-q37 exist only as hand-built plans. The binary engine
+# evaluates the closing edge as a post-join eqcol residual; the hypercube
 # planner recognizes the cycle and quotes one multi-way shuffle against the
 # DP's best binary tree. Build sides are aggregates (unique group keys — the
 # engine's build contract) sized *relatively large* (> probe/k0), so the
@@ -328,23 +379,27 @@ def q37_four_clique() -> Node:
     return Aggregate(f, "ss_store_sk", (("ss_net_profit", "sum"),))
 
 
-HAND_BUILT = {
-    "q1_star3": q1_star3, "q2_chain7": q2_chain7,
-    "q3_cross_channel": q3_cross_channel, "q4_agg_agg": q4_agg_agg,
+#: q1-q23's hand-built constructors — the structural reference the SQL
+#: round-trip test pins against SQL_TEXTS.
+HAND_BUILT: Dict[str, Callable[[], Node]] = {
+    "q1_star3": q1_star3,
+    "q2_chain7": q2_chain7,
+    "q3_cross_channel": q3_cross_channel,
+    "q4_agg_agg": q4_agg_agg,
     "q5_dim_chain_first": q5_dim_chain_first,
-    "q6_catalog_star": q6_catalog_star, "q7_filtered_fact": q7_filtered_fact,
-    "q8_semi": q8_semi, "q9_inventory_star": q9_inventory_star,
-    "q10_promo_window": q10_promo_window, "q11_projected": q11_projected,
+    "q6_catalog_star": q6_catalog_star,
+    "q7_filtered_fact": q7_filtered_fact,
+    "q8_semi": q8_semi,
+    "q9_inventory_star": q9_inventory_star,
+    "q10_promo_window": q10_promo_window,
+    "q11_projected": q11_projected,
     "q12_anti": q12_anti,
-}
-
-MISORDERED = {
     "q13_fact_fact_first": q13_fact_fact_first,
     "q14_big_dim_first": q14_big_dim_first,
     "q15_late_filter": q15_late_filter,
-}
-
-FILTERED = {
+    "q16_hot_customer": q16_hot_customer,
+    "q17_hot_customer_star": q17_hot_customer_star,
+    "q18_hot_catalog_customer": q18_hot_catalog_customer,
     "q19_filtered_customer": q19_filtered_customer,
     "q20_filter_below_earlier_exchange": q20_filter_below_earlier_exchange,
     "q21_catalog_filtered_dates": q21_catalog_filtered_dates,
@@ -352,36 +407,358 @@ FILTERED = {
     "q23_semi_join_stores": q23_semi_join_stores,
 }
 
-CYCLIC = {
-    "q35_triangle": q35_triangle,
-    "q36_triangle_shared_axis": q36_triangle_shared_axis,
-    "q37_four_clique": q37_four_clique,
+
+# ---------------------------------------------------------------------------
+# The SQL texts. These are the queries: every registry below lowers its
+# plans from this dict through parse_sql(). Filters written inside derived
+# tables sit on the leaf scans (the hand-built shapes); q15/q29 deliberately
+# leave predicates above the joins for the optimizer's pushdown to sink.
+# ---------------------------------------------------------------------------
+
+SQL_TEXTS: Dict[str, str] = {
+    "q1_star3": """
+        SELECT i_brand, SUM(ss_sales_price), SUM(ss_quantity)
+        FROM store_sales
+        JOIN (SELECT * FROM item WHERE i_category < 3)
+          ON ss_item_sk = i_item_sk
+        JOIN store ON ss_store_sk = s_store_sk
+        JOIN (SELECT * FROM date_dim WHERE d_month = 6)
+          ON ss_sold_date_sk = d_date_sk
+        GROUP BY i_brand
+    """,
+    "q2_chain7": """
+        SELECT i_category, SUM(ss_net_profit)
+        FROM store_sales
+        JOIN date_dim ON ss_sold_date_sk = d_date_sk
+        JOIN item ON ss_item_sk = i_item_sk
+        JOIN customer ON ss_customer_sk = c_customer_sk
+        JOIN household ON c_hdemo_sk = hd_demo_sk
+        JOIN promotion ON ss_promo_sk = p_promo_sk
+        JOIN store ON ss_store_sk = s_store_sk
+        GROUP BY i_category
+    """,
+    "q3_cross_channel": """
+        SELECT ss_store_sk, SUM(ss_sales_price)
+        FROM store_sales
+        JOIN (SELECT cs_item_sk, SUM(cs_sales_price), COUNT(cs_quantity)
+              FROM catalog_sales GROUP BY cs_item_sk)
+          ON ss_item_sk = cs_item_sk
+        GROUP BY ss_store_sk
+    """,
+    "q4_agg_agg": """
+        SELECT *
+        FROM (SELECT inv_item_sk, AVG(inv_quantity_on_hand) FROM inventory
+              WHERE inv_date_sk < 180 GROUP BY inv_item_sk)
+        JOIN (SELECT inv_item_sk, AVG(inv_quantity_on_hand) FROM inventory
+              WHERE inv_date_sk >= 180 GROUP BY inv_item_sk)
+          ON inv_item_sk = inv_item_sk
+    """,
+    "q5_dim_chain_first": """
+        SELECT hd_buy_potential, SUM(ss_net_profit)
+        FROM store_sales
+        JOIN (SELECT * FROM customer
+              JOIN household ON c_hdemo_sk = hd_demo_sk)
+          ON ss_customer_sk = c_customer_sk
+        GROUP BY hd_buy_potential
+    """,
+    "q6_catalog_star": """
+        SELECT w_state, SUM(cs_sales_price)
+        FROM catalog_sales
+        JOIN warehouse ON cs_warehouse_sk = w_warehouse_sk
+        JOIN (SELECT * FROM date_dim WHERE d_year = 2000)
+          ON cs_ship_date_sk = d_date_sk
+        JOIN item ON cs_item_sk = i_item_sk
+        GROUP BY w_state
+    """,
+    "q7_filtered_fact": """
+        SELECT c_region, SUM(ss_sales_price)
+        FROM (SELECT * FROM store_sales WHERE ss_quantity < 10)
+        JOIN customer ON ss_customer_sk = c_customer_sk
+        GROUP BY c_region
+    """,
+    "q8_semi": """
+        SELECT * FROM customer
+        WHERE c_customer_sk IN (SELECT ss_customer_sk, COUNT(ss_quantity)
+                                FROM store_sales GROUP BY ss_customer_sk)
+    """,
+    "q9_inventory_star": """
+        SELECT i_category, SUM(inv_quantity_on_hand)
+        FROM inventory
+        JOIN item ON inv_item_sk = i_item_sk
+        JOIN warehouse ON inv_warehouse_sk = w_warehouse_sk
+        GROUP BY i_category
+    """,
+    "q10_promo_window": """
+        SELECT p_channel, SUM(ss_net_profit)
+        FROM store_sales
+        JOIN (SELECT * FROM date_dim WHERE d_moy BETWEEN 10 AND 20)
+          ON ss_sold_date_sk = d_date_sk
+        JOIN promotion ON ss_promo_sk = p_promo_sk
+        GROUP BY p_channel
+    """,
+    "q11_projected": """
+        SELECT i_brand, SUM(ss_sales_price)
+        FROM (SELECT ss_item_sk, ss_customer_sk, ss_sales_price
+              FROM store_sales)
+        JOIN customer ON ss_customer_sk = c_customer_sk
+        JOIN item ON ss_item_sk = i_item_sk
+        GROUP BY i_brand
+    """,
+    "q12_anti": """
+        SELECT * FROM item
+        WHERE i_item_sk NOT IN (SELECT cs_item_sk, COUNT(cs_quantity)
+                                FROM catalog_sales GROUP BY cs_item_sk)
+    """,
+    "q13_fact_fact_first": """
+        SELECT i_brand, SUM(ss_sales_price)
+        FROM store_sales
+        JOIN (SELECT cs_item_sk, SUM(cs_sales_price) FROM catalog_sales
+              GROUP BY cs_item_sk)
+          ON ss_item_sk = cs_item_sk
+        JOIN (SELECT * FROM item WHERE i_category < 1)
+          ON ss_item_sk = i_item_sk
+        JOIN (SELECT * FROM date_dim WHERE d_month = 3)
+          ON ss_sold_date_sk = d_date_sk
+        GROUP BY i_brand
+    """,
+    "q14_big_dim_first": """
+        SELECT c_region, SUM(ss_net_profit)
+        FROM store_sales
+        JOIN customer ON ss_customer_sk = c_customer_sk
+        JOIN store ON ss_store_sk = s_store_sk
+        JOIN (SELECT * FROM date_dim WHERE d_month = 6)
+          ON ss_sold_date_sk = d_date_sk
+        GROUP BY c_region
+    """,
+    "q15_late_filter": """
+        SELECT c_region, SUM(ss_sales_price)
+        FROM store_sales
+        JOIN customer ON ss_customer_sk = c_customer_sk
+        JOIN item ON ss_item_sk = i_item_sk
+        WHERE i_category < 1
+        GROUP BY c_region
+    """,
+    "q16_hot_customer": """
+        SELECT c_region, SUM(ss_net_profit)
+        FROM store_sales
+        JOIN customer ON ss_customer_sk = c_customer_sk
+        GROUP BY c_region
+    """,
+    "q17_hot_customer_star": """
+        SELECT c_region, SUM(ss_sales_price)
+        FROM store_sales
+        JOIN customer ON ss_customer_sk = c_customer_sk
+        JOIN store ON ss_store_sk = s_store_sk
+        JOIN (SELECT * FROM date_dim WHERE d_month = 6)
+          ON ss_sold_date_sk = d_date_sk
+        GROUP BY c_region
+    """,
+    "q18_hot_catalog_customer": """
+        SELECT c_region, SUM(cs_sales_price)
+        FROM catalog_sales
+        JOIN date_dim ON cs_ship_date_sk = d_date_sk
+        JOIN customer ON cs_bill_customer_sk = c_customer_sk
+        GROUP BY c_region
+    """,
+    "q19_filtered_customer": """
+        SELECT c_region, SUM(ss_net_profit)
+        FROM store_sales
+        JOIN (SELECT * FROM customer WHERE c_income < 74000)
+          ON ss_customer_sk = c_customer_sk
+        GROUP BY c_region
+    """,
+    "q20_filter_below_earlier_exchange": """
+        SELECT c_region, SUM(ss_sales_price)
+        FROM store_sales
+        JOIN customer ON ss_customer_sk = c_customer_sk
+        JOIN (SELECT * FROM item WHERE i_category < 1)
+          ON ss_item_sk = i_item_sk
+        GROUP BY c_region
+    """,
+    "q21_catalog_filtered_dates": """
+        SELECT c_region, SUM(cs_sales_price)
+        FROM catalog_sales
+        JOIN customer ON cs_bill_customer_sk = c_customer_sk
+        JOIN (SELECT * FROM date_dim WHERE d_month BETWEEN 0 AND 2)
+          ON cs_ship_date_sk = d_date_sk
+        GROUP BY c_region
+    """,
+    "q22_zone_map_window": """
+        SELECT c_region, SUM(ss_net_profit)
+        FROM store_sales
+        JOIN customer ON ss_customer_sk = c_customer_sk
+        JOIN (SELECT * FROM date_dim WHERE d_date_sk < 90)
+          ON ss_sold_date_sk = d_date_sk
+        GROUP BY c_region
+    """,
+    "q23_semi_join_stores": """
+        SELECT c_region, SUM(ss_sales_price)
+        FROM store_sales
+        JOIN customer ON ss_customer_sk = c_customer_sk
+        JOIN (SELECT * FROM store WHERE s_state = 0)
+          ON ss_store_sk = s_store_sk
+        GROUP BY c_region
+    """,
+    # -- text-only queries (q24+): no hand-built twin, the front end is
+    # -- their sole producer. Each widens the parsed surface: multi-
+    # -- conjunct WHEREs, IN lists, LEFT JOIN, semi/anti under aggregates,
+    # -- implicit comma joins, ne predicates, nested derived aggregates.
+    "q24_multi_predicate": """
+        SELECT s_state, SUM(ss_net_profit)
+        FROM (SELECT * FROM store_sales
+              WHERE ss_quantity < 50 AND ss_sales_price > 100)
+        JOIN store ON ss_store_sk = s_store_sk
+        GROUP BY s_state
+    """,
+    "q25_in_dims": """
+        SELECT i_brand, SUM(ss_sales_price)
+        FROM store_sales
+        JOIN (SELECT * FROM item WHERE i_category IN (1, 3, 5))
+          ON ss_item_sk = i_item_sk
+        JOIN (SELECT * FROM date_dim WHERE d_month = 6)
+          ON ss_sold_date_sk = d_date_sk
+        GROUP BY i_brand
+    """,
+    "q26_outer_agg": """
+        SELECT c_region, SUM(sum_ss_net_profit)
+        FROM customer
+        LEFT JOIN (SELECT ss_customer_sk, SUM(ss_net_profit)
+                   FROM store_sales GROUP BY ss_customer_sk)
+          ON c_customer_sk = ss_customer_sk
+        GROUP BY c_region
+    """,
+    "q27_semi_rich": """
+        SELECT c_region, COUNT(c_income)
+        FROM customer
+        WHERE c_income > 150000
+          AND c_customer_sk IN (SELECT cs_bill_customer_sk,
+                                       COUNT(cs_quantity)
+                                FROM catalog_sales
+                                GROUP BY cs_bill_customer_sk)
+        GROUP BY c_region
+    """,
+    "q28_anti_catalog": """
+        SELECT i_category, COUNT(i_price)
+        FROM item
+        WHERE i_item_sk NOT IN (SELECT cs_item_sk, COUNT(cs_quantity)
+                                FROM catalog_sales GROUP BY cs_item_sk)
+        GROUP BY i_category
+    """,
+    "q29_implicit_star": """
+        SELECT s_state, SUM(ss_sales_price)
+        FROM store_sales, store, date_dim
+        WHERE ss_store_sk = s_store_sk
+          AND ss_sold_date_sk = d_date_sk
+          AND d_month = 11
+        GROUP BY s_state
+    """,
+    "q30_zone_window": """
+        SELECT p_channel, SUM(ss_net_profit)
+        FROM store_sales
+        JOIN (SELECT * FROM date_dim WHERE d_date_sk BETWEEN 30 AND 59)
+          ON ss_sold_date_sk = d_date_sk
+        JOIN promotion ON ss_promo_sk = p_promo_sk
+        GROUP BY p_channel
+    """,
+    "q31_ne_store": """
+        SELECT s_state, COUNT(ss_quantity)
+        FROM store_sales
+        JOIN (SELECT * FROM store WHERE s_state <> 0)
+          ON ss_store_sk = s_store_sk
+        GROUP BY s_state
+    """,
+    "q32_inventory_turns": """
+        SELECT w_state, SUM(mean_inv_quantity_on_hand)
+        FROM (SELECT inv_warehouse_sk, AVG(inv_quantity_on_hand)
+              FROM inventory WHERE inv_date_sk BETWEEN 90 AND 179
+              GROUP BY inv_warehouse_sk)
+        JOIN warehouse ON inv_warehouse_sk = w_warehouse_sk
+        GROUP BY w_state
+    """,
+    # -- service queries (q33/q34): deliberately overlapping with q19/q22 —
+    # -- identical FROM/JOIN subtrees under a *different* aggregate, the
+    # -- cross-query CSE targets (the shared join executes once per batch).
+    "q33_shared_customer_join": """
+        SELECT c_region, SUM(ss_sales_price)
+        FROM store_sales
+        JOIN (SELECT * FROM customer WHERE c_income < 74000)
+          ON ss_customer_sk = c_customer_sk
+        GROUP BY c_region
+    """,
+    "q34_shared_window_join": """
+        SELECT c_region, SUM(ss_sales_price)
+        FROM store_sales
+        JOIN customer ON ss_customer_sk = c_customer_sk
+        JOIN (SELECT * FROM date_dim WHERE d_date_sk < 90)
+          ON ss_sold_date_sk = d_date_sk
+        GROUP BY c_region
+    """,
 }
 
 
-def all_queries() -> Dict[str, Node]:
-    """The 12 baseline plans, q1-q12."""
-    return {name: build() for name, build in HAND_BUILT.items()}
-
-
-def filtered_queries() -> Dict[str, Node]:
-    """The runtime-filter targets q19-q23 (run them under
-    ``FilteredStrategy``)."""
-    return {name: build() for name, build in FILTERED.items()}
+def _from_sql(names) -> Dict[str, Node]:
+    return {name: parse_sql(SQL_TEXTS[name]) for name in names}
 
 
 def misordered_queries() -> Dict[str, Node]:
     """The mis-ordered planner targets q13-q15 (run them under
     ``ReorderingStrategy``)."""
-    return {name: build() for name, build in MISORDERED.items()}
+    return _from_sql(["q13_fact_fact_first", "q14_big_dim_first",
+                      "q15_late_filter"])
+
+
+def skewed_queries() -> Dict[str, Node]:
+    """The skew targets q16-q18."""
+    return _from_sql(["q16_hot_customer", "q17_hot_customer_star",
+                      "q18_hot_catalog_customer"])
+
+
+def filtered_queries() -> Dict[str, Node]:
+    """The runtime-filter targets q19-q23 (run them under
+    ``FilteredStrategy``)."""
+    return _from_sql(["q19_filtered_customer",
+                      "q20_filter_below_earlier_exchange",
+                      "q21_catalog_filtered_dates",
+                      "q22_zone_map_window",
+                      "q23_semi_join_stores"])
 
 
 def cyclic_queries() -> Dict[str, Node]:
-    """The cyclic-core queries q35-q37 (the hypercube targets, under
-    ``ReorderingStrategy``)."""
-    return {name: build() for name, build in CYCLIC.items()}
+    """The cyclic-core queries (q35-q37): hand-built only — their closing
+    eqcol edges are inexpressible in the suite's SQL dialect."""
+    return {"q35_triangle": q35_triangle(),
+            "q36_triangle_shared_axis": q36_triangle_shared_axis(),
+            "q37_four_clique": q37_four_clique()}
+
+
+def text_queries() -> Dict[str, Node]:
+    """The text-only queries (q24+) — plans that exist solely as SQL."""
+    return _from_sql([n for n in SQL_TEXTS if n not in HAND_BUILT])
+
+
+def service_queries() -> Dict[str, Node]:
+    """The concurrent-service batch: the filter-friendly q19-q23 plus the
+    deliberately-overlapping q33/q34, whose join subtrees duplicate q19's
+    and q22's — the cross-query CSE demonstration suite."""
+    out = filtered_queries()
+    out.update(_from_sql(["q33_shared_customer_join",
+                          "q34_shared_window_join"]))
+    return out
 
 
 def every_query() -> Dict[str, Node]:
-    """The 12 baseline plans plus the 3 mis-ordered planner targets."""
-    return {**all_queries(), **misordered_queries()}
+    """The 12 baseline plans plus the 3 mis-ordered planner targets.
+    (The skewed q16-q18, filter-friendly q19-q23 and text-only q24+ are
+    separate: they target specific catalogs/strategies — see
+    ``skewed_queries()`` / ``filtered_queries()`` / ``text_queries()``.)"""
+    out = all_queries()
+    out.update(misordered_queries())
+    return out
+
+
+def all_queries() -> Dict[str, Node]:
+    """The 12 baseline plans, q1-q12."""
+    return _from_sql(["q1_star3", "q2_chain7", "q3_cross_channel",
+                      "q4_agg_agg", "q5_dim_chain_first", "q6_catalog_star",
+                      "q7_filtered_fact", "q8_semi", "q9_inventory_star",
+                      "q10_promo_window", "q11_projected", "q12_anti"])

@@ -1,6 +1,7 @@
 """The port on an NVIDIA card: each CUDA kernel against its plain version,
-and the main path, the runtime-filter path and the reordering and hypercube
-path on the card against the same paths on the CPU.
+and the main path, the text-only and skew-target suites, the runtime-filter
+path and the reordering and hypercube path on the card against the same
+paths on the CPU.
 
 Every test here is marked ``cuda`` and skips without a card. The file
 imports neither JAX nor the JAX package, and uses no fixture of
@@ -28,7 +29,8 @@ from repro_torch.kernels.partition_hist import (HIST_BRANCHES, hist_branch,
                                                 partition_hist)
 from repro_torch.kernels.tiled_probe import (tiled_probe, tiled_probe3,
                                              tables_fit_shared)
-from repro_torch.kernels.zone_map import key_range
+from repro_torch.kernels.zone_map import (ONE_BLOCK_KEYS, RANGE_BRANCHES,
+                                          key_range, range_branch)
 
 pytestmark = pytest.mark.cuda
 
@@ -397,6 +399,96 @@ def test_key_range_equals_plain(cuda, n, pattern):
         valid[:] = pattern == "all"
     kc, vc = on(cuda, keys), on(cuda, valid)
     assert torch.equal(key_range(kc, vc), ref.key_range_ref(kc, vc))
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, 32, 33, ONE_BLOCK_KEYS - 1,
+                               ONE_BLOCK_KEYS, ONE_BLOCK_KEYS + 1, 100_003,
+                               1 << 24])
+def test_key_range_branches_equal_plain(cuda, n):
+    """Each branch bit for bit: every key valid, none, half; one valid key
+    at either int32 end; the launch counted by its branch."""
+    keys, valid = filter_keys(n, n + 7)
+    kc = on(cuda, keys)
+    before = dict(key_range.branch_launches)
+    for v in (np.ones(n, bool), np.zeros(n, bool), valid):
+        vc = on(cuda, v)
+        assert torch.equal(key_range(kc, vc), ref.key_range_ref(kc, vc))
+    for end in (-(2 ** 31), 2 ** 31 - 1):
+        if not n:
+            continue
+        k = keys.copy()
+        k[n // 2] = end
+        only = np.zeros(n, bool)
+        only[n // 2] = True
+        kc1, vc1 = on(cuda, k), on(cuda, only)
+        assert key_range(kc1, vc1).tolist() == [end, end]
+    took = {b: key_range.branch_launches[b] - before[b]
+            for b in RANGE_BRANCHES}
+    assert took[range_branch(n)] == (5 if n else 3) and sum(
+        took.values()) == took[range_branch(n)]
+
+
+@pytest.mark.parametrize("n", [33, ONE_BLOCK_KEYS + 1, 100_003])
+def test_key_range_on_views_equals_plain(cuda, n):
+    keys, valid = filter_keys(n + 3, n)
+    kc, vc = on(cuda, keys), on(cuda, valid)
+    for k0, v0 in ((1, 0), (0, 3), (2, 1), (3, 3)):
+        kv, vv = kc[k0:k0 + n], vc[v0:v0 + n]
+        assert torch.equal(key_range(kv, vv), ref.key_range_ref(kv, vv))
+
+
+def test_key_range_two_streams_and_beside_hist_and_build(cuda):
+    """The grid branch folds into its stream's accumulator: calls in
+    flight on two streams at once, and calls interleaved with the
+    histogram's and the bloom build's on one stream."""
+    n = 4 * ONE_BLOCK_KEYS + 5
+    inputs = [(on(cuda, np.random.default_rng(i).integers(
+        -1000 * (i + 1), 1000 * (i + 1), n).astype(np.int32)),
+        torch.ones(n, dtype=torch.bool, device=cuda)) for i in range(2)]
+    want = [ref.key_range_ref(k, v) for k, v in inputs]
+    streams = [torch.cuda.Stream() for _ in inputs]
+    torch.cuda.synchronize()
+    got = [[], []]
+    for _ in range(20):
+        for i, (s, (k, v)) in enumerate(zip(streams, inputs)):
+            with torch.cuda.stream(s):
+                got[i].append(key_range(k, v))
+    torch.cuda.synchronize()
+    for i in range(2):
+        assert all(torch.equal(g, want[i]) for g in got[i])
+    keys, valid = (on(cuda, a) for a in filter_keys(n, 3))
+    d = on(cuda, np.random.default_rng(4).integers(
+        -1, 20_001, 1_000_003).astype(np.int32))
+    hist_want = ref.partition_hist_ref(d, 20_000)
+    words_want = ref.bloom_build_ref(keys, valid, 1 << 21, 8)
+    range_want = ref.key_range_ref(keys, valid)
+    for _ in range(10):
+        assert torch.equal(key_range(keys, valid), range_want)
+        assert torch.equal(partition_hist(d, nd=20_000), hist_want)
+        assert torch.equal(key_range(keys, valid), range_want)
+        assert torch.equal(bloom_build(keys, valid, m_bits=1 << 21, k=8),
+                           words_want)
+
+
+def test_text_suite_on_the_card_equals_the_cpu(cuda):
+    """q16-q18 and q24-q34, parsed from SQL text, under the four default
+    strategies: the card's runs equal the CPU's."""
+    from repro_torch.sql import (Executor, default_strategies, generate,
+                                 skewed_queries, text_queries)
+    on_card = generate(0.1, 4, 42)
+    on_cpu = generate(0.1, 4, 42, device="cpu")
+    ops.reset_launch_counts()
+    for name, plan in {**skewed_queries(), **text_queries()}.items():
+        for s in default_strategies():
+            got = Executor(on_card, s).execute(plan)
+            want = Executor(on_cpu, s).execute(plan)
+            assert got.methods() == want.methods(), (name, s.name)
+            assert got.network_bytes == want.network_bytes, (name, s.name)
+            assert rows_close(rows_as_set(got.table.to_numpy()),
+                              rows_as_set(want.table.to_numpy())), name
+    counts = ops.launch_counts()
+    for kernel in ("partition_hist", "tiled_probe", "bitonic_sort_tile"):
+        assert counts[kernel] > 0, kernel
 
 
 def test_filtered_path_on_the_card_equals_the_cpu(cuda):

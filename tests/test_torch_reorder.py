@@ -30,6 +30,8 @@ from repro.sql import cyclic_queries as j_cyclic_queries
 from repro.sql import default_strategies as j_default_strategies
 from repro.sql import filtered_queries as j_filtered_queries
 from repro.sql import misordered_queries as j_misordered_queries
+from repro.sql import skewed_queries as j_skewed_queries
+from repro.sql import text_queries as j_text_queries
 from repro.sql import planner as jp
 from repro.sql.logical import augment_edges as j_augment_edges
 from repro.sql.logical import extract_join_graph as j_extract_join_graph
@@ -40,7 +42,8 @@ from repro_torch.sql import (Executor, FilteredStrategy, RelJoinStrategy,
                              ReorderingStrategy, all_queries, cyclic_queries,
                              default_strategies, every_query,
                              filtered_queries, generate, misordered_queries,
-                             optimize, signature)
+                             optimize, signature, skewed_queries,
+                             text_queries)
 from repro_torch.sql import planner as tp
 from repro_torch.sql.logical import augment_edges, extract_join_graph
 
@@ -51,8 +54,9 @@ REORDER = "Reorder(RelJoin(w=1))"
 
 
 def optimizer_queries():
-    """Every query the port has: q1-q15, q19-q23 and q35-q37."""
-    return {**every_query(), **filtered_queries(), **cyclic_queries()}
+    """Every query of the golden fixture, q1-q37."""
+    return {**every_query(), **skewed_queries(), **filtered_queries(),
+            **text_queries(), **cyclic_queries()}
 
 
 @pytest.fixture(scope="module")
@@ -161,7 +165,8 @@ def test_rewrites_equal_reference(catalog, port_catalog, query):
 
 def _reference_plan(query):
     return {**j_all_queries(), **j_misordered_queries(),
-            **j_filtered_queries(), **j_cyclic_queries()}[query]
+            **j_skewed_queries(), **j_filtered_queries(),
+            **j_text_queries(), **j_cyclic_queries()}[query]
 
 
 @pytest.mark.parametrize("query", sorted(optimizer_queries()))
