@@ -69,13 +69,34 @@ Phases, in order; any failure raises and the script exits non-zero:
    pass and read just after: every strategy gives the same rows, K1, K2
    and K3 launched; wall ms per run and network, local and straggler bytes
    per strategy; one pass under ``torch.profiler``;
+5d. skew, re-optimization and verification, every run with every
+   plan-analysis gate armed (``verify=True``): q16-q18 on
+   ``generate(scale, 8, 0, skew=1.2)`` under RelJoin, SkewAware and
+   Reorder(SkewAware), after a warm-up pass, with the launch counts and the
+   histogram's branch counts set to 0 just before the reported pass and
+   read just after: the methods, salt factors, both sides' measured skew,
+   bytes, overflow retries, rows and wall ms of each run; the same rows in
+   the three arms, the salted method selected, SkewAware's straggler bytes
+   below RelJoin's wherever it salted, and the histogram's shared branch
+   launched (``hot_fine_buckets``' 128 fine buckets); q16-q18 under
+   SkewAware on phase 4's uniform catalog take RelJoin's methods; one pass
+   under ``torch.profiler``. Then checkpoint re-optimization: the
+   reference's 3-leaf chain and q13-q15 under
+   ``Reorder(RelJoin, reopt=True)`` (static statistics) beside reopt off,
+   on phase 4's catalog (no trigger, the same decisions and bytes) and on
+   ``generate(scale, 8, 0, skew_overrides={"ss_item_sk": 1.3})`` (the
+   chain triggers): every checkpoint disciplined, rows as with reopt off.
+   Then the histogram timed at ``hot_fine_buckets``' largest input, as in
+   phase 4, as the JSON line's second partition_hist entry;
 6. cross-checks: the decisions at ``generate(0.1, 4, 42)`` of q1-q37 under
    the four default strategies and of q13-q15 and q35-q37 under
    ``Reorder(RelJoin)`` (154), and ``optimize``'s reordering and plan
    signature for every query (37), equal the golden fixture; the filtered
    runs' filters and methods there equal those of the same runs on the
-   CPU; and at scale 3 the gather path (``use_kernel=False``) gives the
-   rows of the kernel path on q1-q12, q16-q18 and q24-q34.
+   CPU; at scale 3 the gather path (``use_kernel=False``) gives the
+   rows of the kernel path on q1-q12, q16-q18 and q24-q34; and
+   ``repro_torch.sql.plan_analysis.main`` (37 plans x 9 strategies with
+   every gate armed, at ``generate(0.05, 4, 42)``) reports no violation.
 
 With ``--save-inputs PATH`` it saves the inputs at which it timed the
 bitonic sort, the bloom build and key_range, for
@@ -959,16 +980,17 @@ MAIN_KERNELS = ("partition_hist", "tiled_probe", "bitonic_sort_tile")
 FILTER_KERNELS = ("bloom_build", "bloom_probe", "key_range")
 
 
-def make_catalog(dev, scale: float, p: int):
+def make_catalog(dev, scale: float, p: int, **skew):
     import torch
 
     from repro_torch.sql import generate
 
     t0 = time.perf_counter()
-    catalog = generate(scale=scale, p=p, seed=0, device=dev)
+    catalog = generate(scale=scale, p=p, seed=0, device=dev, **skew)
     torch.cuda.synchronize()
     rows = {n: t.count() for n, t in catalog.tables.items()}
-    print(f"  generate(scale={scale}, p={p}, seed=0): "
+    extra = "".join(f", {k}={v}" for k, v in skew.items())
+    print(f"  generate(scale={scale}, p={p}, seed=0{extra}): "
           f"{time.perf_counter() - t0:.1f} s; store_sales "
           f"{rows['store_sales']} rows, catalog_sales "
           f"{rows['catalog_sales']}, inventory {rows['inventory']}")
@@ -1363,7 +1385,7 @@ def hist_least_work(n: int, nd: int, masked: bool) -> tuple[float, float]:
 
 
 def measure_hist(dest, nd: int, valid, launches: int) -> dict:
-    """K1 at the main path's largest call, masked as the exchange calls it:
+    """K1 at a path's largest call, masked as the exchange calls it:
     the JSON row, and beside it the unmasked call, the same input four
     times over, L2 emptied, the old pair (``torch.where`` then the
     histogram) and a read-only reduction of the same destination bytes."""
@@ -1834,6 +1856,262 @@ def run_text_path(catalog) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phase 5d: skew, re-optimization and verification
+# ---------------------------------------------------------------------------
+
+#: The Zipf exponent of the reference's skew suite (``zipf_catalogs``), and
+#: the override of its forced-divergence re-optimization catalog.
+SKEW_ZIPF = 1.2
+REOPT_OVERRIDES = {"ss_item_sk": 1.3}
+
+
+def reopt_chain():
+    """The 3-leaf chain of the reference's re-optimization suite:
+    (store_sales ⋈ σ(item)) ⋈ date_dim."""
+    from repro_torch.sql.logical import Filter, Join, Scan
+    return Join(Join(Scan("store_sales"),
+                     Filter(Scan("item"), "i_item_sk", "lt", 150.0),
+                     "ss_item_sk", "i_item_sk"),
+                Scan("date_dim"), "ss_sold_date_sk", "d_date_sk")
+
+
+class SkewSpy:
+    """Counts the executor's calls of its join methods (one more than a
+    join's overflow retries), keeps the largest ``partition_hist`` call at
+    ``nd`` bins (``hot_fine_buckets``' histogram), and collects the build
+    rows each hash join's bucketing drops (``slot_scatter``'s overflow,
+    which ``hash_join`` does not read), as device tensors summed after the
+    run, so that no host sync is added to it."""
+
+    def __init__(self, nd: int):
+        self.nd, self.calls, self.largest = nd, 0, None
+        self.dropped: list = []
+
+    @contextlib.contextmanager
+    def installed(self):
+        from repro_torch.joins import exchange, local_join
+        from repro_torch.sql import executor
+        hist, run = exchange.partition_hist, executor.run_equi_join
+        scatter = local_join.slot_scatter
+
+        def spy_hist(dest, *, nd, valid=None):
+            if nd == self.nd and (self.largest is None
+                                  or dest.numel() > self.largest[0].numel()):
+                self.largest = (dest, valid)
+            return hist(dest, nd=nd, valid=valid)
+
+        def spy_run(*args, **kwargs):
+            self.calls += 1
+            return run(*args, **kwargs)
+
+        def spy_scatter(*args, **kwargs):
+            out = scatter(*args, **kwargs)
+            self.dropped.append(out.overflow)
+            return out
+
+        exchange.partition_hist, executor.run_equi_join = spy_hist, spy_run
+        local_join.slot_scatter = spy_scatter
+        try:
+            yield self
+        finally:
+            exchange.partition_hist, executor.run_equi_join = hist, run
+            local_join.slot_scatter = scatter
+
+
+def same_rows(a: dict, b: dict) -> bool:
+    """Multiset equality of two results' column dicts without building a
+    Python tuple per row (the chain's results hold millions): both sorted
+    by every column, integer columns first, then integers equal and floats
+    within ``rows_close``'s tolerance."""
+    import numpy as np
+    if sorted(a) != sorted(b) or len(next(iter(a.values()), ())) != len(
+            next(iter(b.values()), ())):
+        return False
+    names = sorted(a, key=lambda n: (a[n].dtype.kind == "f", n))
+    ia, ib = (np.lexsort([c[n] for n in reversed(names)]) for c in (a, b))
+    for n in names:
+        x, y = a[n][ia], b[n][ib]
+        if x.dtype.kind == "f":
+            if not np.allclose(x, y, rtol=1e-3, atol=1e-4):
+                return False
+        elif not np.array_equal(x, y):
+            return False
+    return True
+
+
+def describe_skew_run(res) -> str:
+    return " ".join(
+        f"{d.selection.method.value}(r={d.selection.salt_r},"
+        f"s={d.left_stats.skew:.3f}/{d.right_stats.skew:.3f})"
+        for d in res.decisions)
+
+
+def run_skew_path(uniform, dev, scale: float):
+    """Phase 5d. q16-q18 on ``generate(scale, 8, 0, skew=SKEW_ZIPF)`` under
+    RelJoin, SkewAware and Reorder(SkewAware): a warm-up pass, then the
+    reported pass (launch counts and K1's branch counts set to 0 just
+    before and read just after), then one pass under ``torch.profiler``.
+    q16-q18 under SkewAware on the uniform catalog take RelJoin's methods.
+    Then checkpoint re-optimization on the reference's chain and q13-q15,
+    reopt on beside reopt off, on the uniform catalog and on the
+    forced-divergence one. Every run has every plan-analysis gate armed.
+    Returns the phase's launch counts and ``hot_fine_buckets``' largest
+    input: ``(dest, valid, nd)``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.cost_model import JoinMethod
+    from repro_torch.joins.exchange import HOT_FINE_MULT
+    from repro_torch.joins.ref import rows_as_set, rows_close
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.partition_hist import partition_hist
+    from repro_torch.sql import (Executor, RelJoinStrategy,
+                                 ReorderingStrategy, SkewAwareStrategy,
+                                 misordered_queries, skewed_queries)
+
+    zipf = make_catalog(dev, scale, p=8, skew=SKEW_ZIPF)
+    queries = skewed_queries()
+    strategies = [RelJoinStrategy(), SkewAwareStrategy(),
+                  ReorderingStrategy(SkewAwareStrategy())]
+    spy = SkewSpy(HOT_FINE_MULT * zipf.p)
+
+    def run_all():
+        for qname, plan in queries.items():
+            for s in strategies:
+                spy.calls = 0
+                res = Executor(zipf, s, verify=True).execute(plan)
+                yield qname, s, res, spy.calls - len(res.decisions)
+
+    t_warm = time.perf_counter()
+    with spy.installed():
+        for _ in run_all():  # first calls of every torch op, not reported
+            pass
+    print(f"  warm-up pass: {time.perf_counter() - t_warm:.1f} s")
+
+    results: dict = {}
+    dropped: dict = {}
+    spy.largest, spy.dropped = None, []
+    ops.reset_launch_counts()
+    for branch in partition_hist.branch_launches:
+        partition_hist.branch_launches[branch] = 0
+    t_phase = time.perf_counter()
+    with spy.installed():
+        before = ops.launch_counts()
+        for qname, s, res, retries in run_all():
+            after = ops.launch_counts()
+            delta = ",".join(str(after[k] - before[k]) for k in after)
+            before = after
+            dropped[(qname, s.name)] = spy.dropped
+            spy.dropped = []
+            cols = res.table.to_numpy()
+            results[(qname, s.name)] = (res, rows_as_set(cols))
+            print(f"  {qname:24s} {s.name:24s} {describe_skew_run(res)} "
+                  f"net={res.network_bytes:.0f} local={res.local_bytes:.0f} "
+                  f"straggler={res.straggler_bytes:.0f} retries={retries} "
+                  f"rows={res.rows} wall={res.wall_time_s * 1e3:.2f}ms "
+                  f"launches={delta}")
+            for name, c in cols.items():
+                if c.dtype.kind == "f":
+                    require(bool(np.isfinite(c).all()),
+                            f"{qname} {s.name}: non-finite {name}")
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    branches = dict(partition_hist.branch_launches)
+    print(f"  skew path: {time.perf_counter() - t_phase:.1f} s for "
+          f"{len(results)} runs; launches {launches}; partition_hist by "
+          f"branch {branches}")
+    require(branches["shared"] > 0,
+            "partition_hist's shared branch never launched on the skew path")
+    lost = {k: sum(int(t.sum()) for t in v) for k, v in dropped.items()}
+    print("  build rows dropped by hash_join's bucketing (not read, as in "
+          "the reference): " + ", ".join(
+              f"{q} {s} {n}" for (q, s), n in lost.items()))
+    for name in ("partition_hist", "tiled_probe"):
+        require(launches[name] > 0,
+                f"kernel {name} never launched on the skew path")
+    salted = 0
+    for qname in queries:
+        (base, base_rows), *others = [results[(qname, s.name)]
+                                      for s in strategies]
+        for s, (res, rows) in zip(strategies[1:], others):
+            require(rows_close(base_rows, rows),
+                    f"{qname}: {s.name} rows differ from {strategies[0].name}")
+        skew_res = others[0][0]
+        if JoinMethod.SALTED_SHUFFLE_HASH in skew_res.methods():
+            salted += 1
+            require(skew_res.straggler_bytes < base.straggler_bytes,
+                    f"{qname}: SkewAware's straggler bytes "
+                    f"{skew_res.straggler_bytes:.0f} not below RelJoin's "
+                    f"{base.straggler_bytes:.0f}")
+        salted += sum(JoinMethod.SALTED_SHUFFLE_HASH in r.methods()
+                      for r, _ in others[1:])
+        print(f"  {qname:24s} {len(base_rows)} rows agree across the three "
+              f"arms; straggler bytes RelJoin {base.straggler_bytes:.0f}, "
+              f"SkewAware {skew_res.straggler_bytes:.0f}, Reorder(SkewAware) "
+              f"{others[1][0].straggler_bytes:.0f}")
+    require(salted > 0, "no run selected SALTED_SHUFFLE_HASH")
+
+    for qname, plan in queries.items():
+        got = Executor(uniform, SkewAwareStrategy(), verify=True).execute(plan)
+        want = Executor(uniform, RelJoinStrategy(), verify=True).execute(plan)
+        require(got.methods() == want.methods(),
+                f"{qname}: SkewAware's methods {got.methods()} on uniform "
+                f"keys are not RelJoin's {want.methods()}")
+    print("  uniform keys: SkewAware's methods equal RelJoin's on q16-q18")
+
+    t_profile = time.perf_counter()
+    profile_pass(lambda: ((q, s, r) for q, s, r, _ in run_all()))
+    print(f"  profile pass and its report: "
+          f"{time.perf_counter() - t_profile:.1f} s")
+
+    tilted = make_catalog(dev, scale, p=8, skew_overrides=REOPT_OVERRIDES)
+    plans = {"reopt_chain": reopt_chain(), **misordered_queries()}
+    triggers = 0
+    t_reopt = time.perf_counter()
+    for label, cat in (("uniform", uniform), ("tilted", tilted)):
+        for qname, plan in plans.items():
+            runs = {reopt: Executor(cat, ReorderingStrategy(
+                RelJoinStrategy(), reopt=reopt), adaptive=False,
+                verify=True).execute(plan) for reopt in (False, True)}
+            off, on = runs[False], runs[True]
+            require(on.reopts, f"{label} {qname}: no checkpoint recorded")
+            for d in on.reopts:
+                require(d.triggered == (d.q_error > d.threshold),
+                        f"{label} {qname}: checkpoint {d.boundary} "
+                        f"triggered={d.triggered} at q-error {d.q_error}")
+                require(d.triggered or d.new_next == d.old_next,
+                        f"{label} {qname}: untriggered checkpoint "
+                        f"{d.boundary} changed the continuation")
+            require(on.rows == off.rows and same_rows(on.table.to_numpy(),
+                                                      off.table.to_numpy()),
+                    f"{label} {qname}: reopt rows differ from reopt off")
+            if label == "uniform":
+                require(on.reopt_count == 0,
+                        f"uniform {qname}: {on.reopt_count} checkpoints "
+                        "triggered")
+                require(on.methods() == off.methods()
+                        and on.network_bytes == off.network_bytes,
+                        f"uniform {qname}: reopt changed the decisions")
+            elif qname == "reopt_chain":
+                triggers += on.reopt_count
+            print(f"  reopt {label:7s} {qname:24s} checkpoints "
+                  + ", ".join(f"{d.boundary}:q={d.q_error:.3f}"
+                              f"{'*' if d.triggered else ''}"
+                              f"->{d.new_next}" for d in on.reopts)
+                  + f"; methods {','.join(m.value for m in on.methods())}"
+                  f" (off {','.join(m.value for m in off.methods())}); "
+                  f"net {on.network_bytes:.0f} (off {off.network_bytes:.0f})"
+                  f"; rows {on.rows}; wall {on.wall_time_s * 1e3:.2f} ms "
+                  f"(off {off.wall_time_s * 1e3:.2f})")
+    require(triggers > 0, "no checkpoint triggered on the forced-divergence "
+            "catalog's chain")
+    print(f"  re-optimization: {time.perf_counter() - t_reopt:.1f} s for "
+          f"{4 * len(plans)} runs, row checks included")
+    del tilted, zipf
+    return launches, (*spy.largest, spy.nd)
+
+
+# ---------------------------------------------------------------------------
 # Phase 5b: reordering and the hypercube
 # ---------------------------------------------------------------------------
 
@@ -2195,14 +2473,30 @@ def main() -> int:
 
     with phase("5c. the text-only and skew-target suites"):
         run_text_path(catalog)
+
+    with phase("5d. skew, re-optimization and verification"):
+        launches, (dest, valid, nd) = run_skew_path(catalog, dev,
+                                                    args.scale)
         del catalog
+        print("  partition_hist timing at hot_fine_buckets' largest input "
+              f"({smi}):")
+        rows.append(measure_hist(dest, nd, valid,
+                                 launches["partition_hist"]))
+        report_kernels(rows[-1:])
 
     with phase("6. cross-checks"):
         from repro_torch.sql import generate
+        from repro_torch.sql import plan_analysis
         small = generate(0.1, 4, 42, device=dev)
         check_golden(small)
         check_filters_against_cpu(small)
         check_gather_path(dev)
+        t0 = time.perf_counter()
+        code = plan_analysis.main(["--scale", "0.05", "--p", "4",
+                                   "--seed", "42"])
+        require(code == 0, "plan_analysis.main reported violations")
+        print(f"  plan_analysis.main on the card: 0 violations in "
+              f"{time.perf_counter() - t0:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

@@ -1,4 +1,5 @@
-"""Data-exchange phase: broadcast and shuffle (paper §2.1.1).
+"""Data-exchange phase: broadcast, shuffle and salted shuffle (paper §2.1.1
+plus the skew-aware extension).
 
 Global-view implementations on stacked ``(p, cap)`` tables: the all-to-all
 is an axis transpose and the replication a concatenation of partitions.
@@ -10,8 +11,9 @@ hottest destination partition, counted with the ``partition_hist`` kernel —
 is the skew signal: under Zipf keys it, not the mean, bounds wall-clock.
 
 The hypercube exchange replicates rows along the cube axes a relation does
-not own. The salted shuffle, hot-bucket detection and ``key_skew`` come with
-the skew slice of the port.
+not own. The salted shuffle spreads hot probe keys over several
+destinations and replicates their build rows; ``key_skew`` measures the
+straggler factor a plain shuffle would have.
 """
 
 from __future__ import annotations
@@ -21,9 +23,21 @@ import dataclasses
 import torch
 
 from ..kernels.partition_hist import partition_hist
-from .slots import (SHUFFLE_SEED, gather_rows, hash32, pair_capacity,
-                    slot_scatter)
+from .slots import (_MASK32, SHUFFLE_SEED, gather_rows, hash32,
+                    pair_capacity, slot_scatter)
 from .table import Table, concat_partitions
+
+#: Decorrelated from SHUFFLE_SEED/BUCKET_SEED: salt hashing must not undo
+#: the destination hash (murmur3 finalizer constant).
+SALT_SEED = 0x27D4EB2F
+
+#: Hot-key detection granularity: nf = HOT_FINE_MULT * p fine hash buckets.
+HOT_FINE_MULT = 16
+
+#: A fine bucket is *hot* when its probe mass alone exceeds this share of a
+#: partition's fair share (total/p) — routing it unsalted would measurably
+#: tilt one partition.
+HOT_PARTITION_SHARE = 0.25
 
 
 @dataclasses.dataclass
@@ -40,6 +54,29 @@ class ExchangeReport:
 
 def _dest_partition(key: torch.Tensor, p: int) -> torch.Tensor:
     return (hash32(key, SHUFFLE_SEED) % p).to(torch.int32)
+
+
+def _flat_hist(ids: torch.Tensor, valid: torch.Tensor, nd: int
+               ) -> torch.Tensor:
+    """``partition_hist`` of a ``(p, cap)`` id array under its row mask."""
+    return partition_hist(ids.reshape(-1).contiguous(), nd=nd,
+                          valid=valid.reshape(-1).contiguous())
+
+
+def _fine_bucket(key: torch.Tensor, nf: int) -> torch.Tensor:
+    """Fine hash bucket of a key. With nf a multiple of p, h % nf refines
+    h % p exactly: every fine bucket maps wholly into one partition."""
+    return (hash32(key, SHUFFLE_SEED) % nf).to(torch.int32)
+
+
+def _salted_dest(key: torch.Tensor, salt: torch.Tensor, p: int
+                 ) -> torch.Tensor:
+    """Destination of a (key, salt) pair. Deterministic in both, and salt 0
+    reproduces the plain shuffle destination, so cold (unsalted) rows land
+    exactly where ``shuffle`` would send them. The two uint32 hashes add
+    with the wrap of uint32 arithmetic before ``% p``."""
+    h = (hash32(key, SHUFFLE_SEED) + hash32(salt, SALT_SEED)) & _MASK32
+    return (h % p).to(torch.int32)
 
 
 def broadcast(table: Table) -> tuple[Table, ExchangeReport]:
@@ -91,8 +128,7 @@ def _exchange_by_dest(table: Table, dest: torch.Tensor, pair_cap: int,
     src_ids = torch.arange(p, dtype=torch.int32, device=dest.device)[:, None]
     moved = (table.valid & (dest != src_ids)).sum()
     stayed = (table.valid & (dest == src_ids)).sum()
-    loads = partition_hist(dest.reshape(-1).contiguous(), nd=p,
-                           valid=table.valid.reshape(-1).contiguous())
+    loads = _flat_hist(dest, table.valid, p)
     rb = table.row_bytes
     report = ExchangeReport(
         kind,
@@ -188,3 +224,107 @@ def hypercube_shuffle(table: Table, dims: tuple[int, ...],
     wide = Table(wide_cols, wide_valid)
     pair_cap = pair_capacity(cap * f, p, capacity_factor)
     return _exchange_by_dest(wide, dest, pair_cap, None, kind="hypercube")
+
+
+# ---------------------------------------------------------------------------
+# Skew mitigation: salted shuffle (hot-key spreading + build replication).
+# ---------------------------------------------------------------------------
+
+
+def hot_fine_buckets(table: Table, key: str, nf: int, p: int,
+                     hot_share: float = HOT_PARTITION_SHARE
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Hot-bucket mask of ``table``'s key column.
+
+    Bucket mass comes from the ``partition_hist`` kernel over nf fine hash
+    buckets; a bucket is hot when its mass alone exceeds ``hot_share`` of a
+    partition's fair share (total/p). On uniform keys no bucket comes close
+    (fine means are total/nf = total/(16p)), so nothing is salted. The
+    threshold is computed in float32, as the reference computes it.
+
+    Returns ``(hot, fine)``: the boolean (nf,) mask and the key column's own
+    fine-bucket ids (so the caller need not re-hash the hot table).
+    """
+    fine = _fine_bucket(table.column(key), nf)
+    counts = _flat_hist(fine, table.valid, nf)
+    threshold = counts.sum().to(torch.float32) * hot_share / p
+    return counts.to(torch.float32) > threshold, fine
+
+
+def salted_shuffle(a: Table, a_key: str, b: Table, b_key: str, r: int,
+                   capacity_factor: float = 2.0,
+                   fine_mult: int = HOT_FINE_MULT,
+                   hot_share: float = HOT_PARTITION_SHARE
+                   ) -> tuple[Table, Table, ExchangeReport, ExchangeReport]:
+    """Skew-mitigating co-shuffle of probe side A and build side B.
+
+    Hot keys are detected at fine-hash-bucket granularity from A's key
+    histogram. Hot probe rows get a deterministic salt in [0, r) — spreading
+    each hot key over r destinations — while build rows whose key falls in a
+    hot bucket are replicated once per salt value, so every destination a
+    salted probe row can reach holds the matching build row. Cold rows keep
+    salt 0, whose destination equals the plain shuffle destination.
+
+    Hotness is a pure function of the key (via A's histogram) applied
+    identically on both sides: a probe row is salted iff its build match is
+    replicated, which is exactly the agreement the join needs.
+    """
+    if not (a.stacked and b.stacked):
+        raise ValueError("salted_shuffle expects stacked tables")
+    p = a.num_partitions
+    r = max(2, int(r))
+    nf = fine_mult * p
+    hot, a_fine = hot_fine_buckets(a, a_key, nf, p, hot_share)
+
+    # Probe: deterministic per-row salt for hot rows (round-robin within the
+    # source partition by capacity index, offset by the partition id to
+    # decorrelate sources).
+    ak = a.column(a_key)
+    dev = ak.device
+    a_hot = hot[a_fine.to(torch.int64)]
+    row = torch.arange(ak.shape[1], dtype=torch.int32, device=dev)[None, :]
+    src = torch.arange(ak.shape[0], dtype=torch.int32, device=dev)[:, None]
+    salt_a = torch.where(a_hot, (row + src) % r, 0).to(torch.int32)
+    a_sh, ex_a = _exchange_by_dest(
+        a, _salted_dest(ak, salt_a, p),
+        pair_capacity(a.capacity, p, capacity_factor),
+        None, kind="salted_shuffle")
+
+    # Build: replicate along the capacity axis; replica j of a row is live
+    # iff j == 0 (the plain copy) or the row's key is hot. Replicas of the
+    # same key landing on one partition leave duplicate build keys there —
+    # harmless for FK->PK joins (identical payload, first match wins).
+    bk = b.column(b_key)
+    b_hot = hot[_fine_bucket(bk, nf).to(torch.int64)]
+    cap_b = b.capacity
+    salt_b = torch.arange(r, dtype=torch.int32, device=dev
+                          ).repeat_interleave(cap_b)[None, :]
+    wide_valid = b.valid.repeat(1, r) & ((salt_b == 0) | b_hot.repeat(1, r))
+    b_wide = Table({n: c.repeat(1, r) for n, c in b.columns.items()},
+                   wide_valid)
+    dest_b = _salted_dest(bk.repeat(1, r), salt_b.expand(wide_valid.shape),
+                          p)
+    b_sh, ex_b = _exchange_by_dest(
+        b_wide, dest_b, pair_capacity(cap_b, p, capacity_factor),
+        None, kind="salted_shuffle")
+    return a_sh, b_sh, ex_a, ex_b
+
+
+def key_skew(table: Table, key: str, p: int | None = None,
+             floor: float = 1.1) -> float:
+    """Measured straggler factor of hash-partitioning ``table`` by ``key``:
+    s = max_partition_load / mean_partition_load over p destinations
+    (``partition_hist`` of the would-be shuffle destinations).
+
+    Values below ``floor`` are statistical fluctuation of uniform hashing
+    and snap to 1.0, so skew-aware selection on uniform data reproduces the
+    paper's Algorithm 1 decisions exactly.
+    """
+    p = p or table.num_partitions
+    counts = _flat_hist(_dest_partition(table.column(key), p), table.valid,
+                        p)
+    total = int(counts.sum())
+    if total == 0:
+        return 1.0
+    s = float(counts.max()) * p / total
+    return s if s >= floor else 1.0

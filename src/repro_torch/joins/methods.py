@@ -10,10 +10,11 @@ the matched build-side payload columns, and a per-method JoinReport with
 Join types: inner, left_outer, left_semi, left_anti (probe side preserved;
 the engine puts the larger table on the probe side as §3.1.4 prescribes).
 
-The hypercube multi-way join evaluates a cyclic join core in one
-replication exchange per relation and one local probe chain per partition.
-The nested-loop and cartesian methods and the salted shuffle hash join come
-with later slices of the port.
+The salted shuffle hash join spreads hot probe keys over several
+partitions and replicates their build rows. The hypercube multi-way join
+evaluates a cyclic join core in one replication exchange per relation and
+one local probe chain per partition. The nested-loop and cartesian methods
+come with a later slice of the port.
 """
 
 from __future__ import annotations
@@ -25,7 +26,8 @@ import torch
 
 from ..core.cost_model import JoinMethod
 from ..kernels import ops as kops
-from .exchange import ExchangeReport, broadcast, hypercube_shuffle, shuffle
+from .exchange import (ExchangeReport, broadcast, hypercube_shuffle,
+                       salted_shuffle, shuffle)
 from .local_join import (A_SENTINEL, B_SENTINEL, LocalJoinResult, hash_join,
                          sort_join)
 from .slots import gather_rows
@@ -113,6 +115,35 @@ def shuffle_hash_join(a: Table, b: Table, a_key: str, b_key: str,
     out = _finish(a_sh, b_sh.columns, res, join_type, b_key)
     out.partitioned_by = a_key
     rep = JoinReport(JoinMethod.SHUFFLE_HASH, [ex_a, ex_b],
+                     _local_bytes(a_sh, b_sh.count(), b_sh.row_bytes, p,
+                                  build_replicated=False),
+                     out.count())
+    return out, rep
+
+
+def salted_shuffle_hash_join(a: Table, b: Table, a_key: str, b_key: str,
+                             join_type: str = "inner",
+                             salt_r: int = 2,
+                             capacity_factor: float = 2.0,
+                             use_kernel: bool = False
+                             ) -> tuple[Table, JoinReport]:
+    """Skew-mitigating shuffle hash join: salt hot probe keys over ``salt_r``
+    destinations and replicate the matching build rows once per salt, then
+    radix-hash join each co-partition like the plain shuffle hash join.
+
+    The output is NOT hash-partitioned by the join key (it is partitioned by
+    (key, salt)), so downstream shuffles on the key are not elided — the
+    price of flattening the straggler, and exactly what the salted cost
+    model's replication surcharge pays for.
+    """
+    p = a.num_partitions
+    a_sh, b_sh, ex_a, ex_b = salted_shuffle(a, a_key, b, b_key, salt_r,
+                                            capacity_factor)
+    res = hash_join(a_sh.column(a_key), a_sh.valid, b_sh.column(b_key),
+                    b_sh.valid, use_kernel=use_kernel)
+    out = _finish(a_sh, b_sh.columns, res, join_type, b_key)
+    out.partitioned_by = None
+    rep = JoinReport(JoinMethod.SALTED_SHUFFLE_HASH, [ex_a, ex_b],
                      _local_bytes(a_sh, b_sh.count(), b_sh.row_bytes, p,
                                   build_replicated=False),
                      out.count())
@@ -256,6 +287,13 @@ def hypercube_multiway_join(tables: list, spec: HypercubeSpec,
 
 # ---------------------------------------------------------------------------
 
+EQUI_METHODS = {
+    JoinMethod.BROADCAST_HASH: broadcast_hash_join,
+    JoinMethod.SHUFFLE_HASH: shuffle_hash_join,
+    JoinMethod.SALTED_SHUFFLE_HASH: salted_shuffle_hash_join,
+    JoinMethod.SHUFFLE_SORT: shuffle_sort_join,
+}
+
 
 def run_equi_join(method: JoinMethod, a: Table, b: Table, a_key: str,
                   b_key: str, join_type: str = "inner",
@@ -268,13 +306,14 @@ def run_equi_join(method: JoinMethod, a: Table, b: Table, a_key: str,
     if method is JoinMethod.SHUFFLE_HASH:
         return shuffle_hash_join(a, b, a_key, b_key, join_type,
                                  capacity_factor, use_kernel)
+    if method is JoinMethod.SALTED_SHUFFLE_HASH:
+        # salt_r < 2 (e.g. a bare hint) is clamped inside salted_shuffle.
+        return salted_shuffle_hash_join(a, b, a_key, b_key, join_type,
+                                        salt_r, capacity_factor, use_kernel)
     if method is JoinMethod.SHUFFLE_SORT:
         return shuffle_sort_join(a, b, a_key, b_key, join_type,
                                  capacity_factor, use_kernel)
     if method in (JoinMethod.BROADCAST_NL, JoinMethod.CARTESIAN):
         raise NotImplementedError(f"{method.value} comes with the "
                                   "nested-loop slice of the port")
-    if method is JoinMethod.SALTED_SHUFFLE_HASH:
-        raise NotImplementedError(f"{method.value} (salt_r={salt_r}) comes "
-                                  "with the skew slice of the port")
     raise ValueError(f"unknown method {method}")

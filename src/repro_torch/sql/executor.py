@@ -23,8 +23,19 @@ re-planned at every exchange boundary, and a cyclic region (closing
 ``eqcol`` filters above it) is quoted as one hypercube multi-way shuffle
 against the best binary tree.
 
-Skew measurement, plan verification, checkpoint re-optimization and shared
-intermediates come with later slices of the port and raise
+Skew measurement (``SkewAwareStrategy``): the join-key straggler factor of
+both inputs is measured at every exchange boundary and priced by the
+selection, which may salt the hot keys.
+
+Checkpoint re-optimization (``reopt=True``): every region boundary audits
+the materialized intermediate's cardinality against the optimizer's
+prediction and, past the q-error threshold, re-plans the remainder.
+
+Plan verification (``verify=True``): every plan, re-plan, filter placement
+and decision runs through the plan-analysis rules, and a violation raises
+``PlanVerificationError``.
+
+Shared intermediates come with the service slice of the port and raise
 ``NotImplementedError`` here.
 """
 
@@ -36,13 +47,14 @@ from typing import Dict, List, Optional
 
 import torch
 
-from ..core.cost_model import (BLOOM_DEFAULT_BITS_PER_KEY, CostParams,
-                               JoinMethod, filter_reduce_cost,
-                               runtime_filter_cost)
+from ..core.cost_model import (BLOOM_DEFAULT_BITS_PER_KEY,
+                               DEFAULT_REOPT_QERROR, CostParams, JoinMethod,
+                               filter_reduce_cost, runtime_filter_cost)
 from ..core.selection import JoinProperties, JoinType, Selection
 from ..core.stats import (StatsSource, TableStats, estimate_filter,
                           estimate_group_by, estimate_join, q_error)
 from ..joins.aggregate import group_aggregate
+from ..joins.exchange import key_skew
 from ..joins.methods import (HypercubeLink, HypercubeSpec, JoinReport,
                              hypercube_multiway_join, run_equi_join)
 from ..joins.table import Table, compact_partitions
@@ -51,6 +63,12 @@ from .logical import (Aggregate, Filter, Join, JoinEdge, Node, Project,
                       RuntimeFilter, Scan, augment_edges,
                       effective_selectivity, extract_join_graph,
                       key_retain_fraction, leaf_columns)
+from .plan_analysis import (PlanVerificationError, Violation, analyze_plan,
+                            audit_exchanges, audit_filter_decision,
+                            audit_selection, catalog_dtypes, check_cache_reuse,
+                            check_cache_store, check_filter_placement,
+                            check_filter_quote, check_reopt_decision,
+                            check_replan_step, check_schema_preserved)
 from .planner import (JoinStep, catalog_base_stats, catalog_schema,
                       enumerate_join_order, leaf_key_domain,
                       modeled_tree_cost, plan_hypercube,
@@ -59,13 +77,9 @@ from .planner import (JoinStep, catalog_base_stats, catalog_schema,
                       stats_retain_fraction)
 from .runtime_filters import (DEFAULT_FILTER_KINDS, build_filter_payload,
                               chain_stats_key, filter_cache_key,
-                              probe_filter_mask)
+                              predicate_chain, probe_filter_mask)
 from .selectivity import derive_selectivity
 from .strategies import Strategy
-
-#: Executor features of later slices: (strategy flag, slice that brings it).
-_LATER_SLICES = (("skew_aware", "skew"), ("verify", "plan-verification"),
-                 ("reopt", "re-optimization"))
 
 #: Shuffle-family methods: both sides cross the wire, so a probe-side
 #: runtime filter reduces their exchange bytes (broadcast ships B only).
@@ -78,8 +92,8 @@ _SHUFFLE_FAMILY = (JoinMethod.SHUFFLE_HASH, JoinMethod.SHUFFLE_SORT,
 #: appear (null-padded), so the executor captures them before the join
 #: and re-injects them afterwards with zero-padded build columns and
 #: ``_matched=False`` — exactly what the join itself would have produced
-#: for them. LEFT_ANTI stays unfilterable: the filter would drop exactly
-#: the rows the query keeps.
+#: for them (the padding path; plan-analysis rule F1). LEFT_ANTI stays
+#: unfilterable: the filter would drop exactly the rows the query keeps.
 _FILTERABLE_TYPES = (JoinType.INNER, JoinType.LEFT_SEMI,
                      JoinType.LEFT_OUTER)
 
@@ -92,7 +106,8 @@ class JoinDecision:
     left_stats: TableStats
     right_stats: TableStats
     report: JoinReport
-    #: The properties (incl. partition flags) the selection ran under.
+    #: The properties (incl. partition flags) the selection ran under —
+    #: what the plan analyzer's exchange audit (E1/E2) checks against.
     props: Optional[JoinProperties] = None
 
     @property
@@ -180,6 +195,26 @@ class CardinalityRecord:
 
 
 @dataclasses.dataclass
+class ReoptDecision:
+    """Audit record of one checkpoint re-optimization decision.
+
+    Emitted at every region exchange boundary of a reopt-enabled run,
+    triggered or not — plan-analysis rule R2 audits the discipline:
+    ``triggered`` iff the recomputed q-error exceeds the threshold, and a
+    non-triggered checkpoint must leave the continuation untouched
+    (``new_next == old_next``)."""
+
+    boundary: int            # 0-based join index within the region
+    estimated: TableStats    # the optimizer's predicted intermediate
+    measured: TableStats     # the materialized intermediate, measured
+    threshold: float         # the executor's q-error trigger
+    q_error: float           # max(est/meas, meas/est), one-row-floored
+    triggered: bool
+    old_next: Optional[int]  # next build leaf under the unfolded stats
+    new_next: Optional[int]  # next build leaf after the checkpoint
+
+
+@dataclasses.dataclass
 class ExecutionResult:
     table: Table
     decisions: List[JoinDecision]
@@ -192,6 +227,8 @@ class ExecutionResult:
     straggler_bytes: float = 0.0
     #: Runtime filters (any kind) that were planned and applied, in order.
     filters: List[FilterDecision] = dataclasses.field(default_factory=list)
+    #: Checkpoint re-optimization audit trail (reopt-enabled runs only).
+    reopts: List[ReoptDecision] = dataclasses.field(default_factory=list)
     #: Estimated-vs-measured cardinality at every join/aggregate boundary.
     cardinalities: List[CardinalityRecord] = dataclasses.field(
         default_factory=list)
@@ -227,6 +264,17 @@ class ExecutionResult:
         through shuffle-family exchanges."""
         return sum(d.probe_shuffle_bytes for d in self.decisions)
 
+    @property
+    def max_q_error(self) -> float:
+        """Worst estimated-vs-measured divergence across all boundaries
+        (1.0 when nothing was recorded — a perfect, if vacuous, score)."""
+        return max((c.q_error for c in self.cardinalities), default=1.0)
+
+    @property
+    def reopt_count(self) -> int:
+        """How many checkpoints actually triggered a re-optimization."""
+        return sum(1 for r in self.reopts if r.triggered)
+
 
 @dataclasses.dataclass
 class _Annotated:
@@ -256,13 +304,8 @@ class Executor:
                  verify: Optional[bool] = None,
                  hypercube: bool = True,
                  intermediates: Optional[Dict[str, Table]] = None,
-                 reopt: Optional[bool] = None):
-        asked = {"verify": verify, "reopt": reopt}
-        for flag, later in _LATER_SLICES:
-            if asked.get(flag) or getattr(strategy, flag, False):
-                raise NotImplementedError(
-                    f"{flag} (strategy {strategy.name!r}) comes with the "
-                    f"{later} slice of the port")
+                 reopt: Optional[bool] = None,
+                 reopt_qerror: Optional[float] = None):
         if intermediates:
             raise NotImplementedError("shared intermediates come with the "
                                       "service slice of the port")
@@ -286,6 +329,11 @@ class Executor:
         # losing quotes are untouched. ``hypercube=False`` forces the
         # binary plan (the comparison arm).
         self.hypercube = hypercube
+        # Skew-aware strategies get runtime key-skew measurements attached
+        # to the boundary statistics (everyone else sees the uniform 1.0,
+        # keeping the paper's strategies bit-identical and measurement-free).
+        self.skew_aware = getattr(strategy, "skew_aware", False)
+        self.skew_floor = getattr(strategy, "skew_floor", 1.1)
         # Runtime-filter pushdown (FilteredStrategy): a filter (cheapest
         # applicable kind) per join-graph edge, planned with *measured*
         # build-side statistics and applied to the probe side below its
@@ -298,6 +346,23 @@ class Executor:
         # Cross-query filter cache: consulted before every build, written
         # after; None = cold path everywhere.
         self.filter_cache = getattr(strategy, "filter_cache", None)
+        # Debug-mode plan verification: every plan (incl. adaptive re-plans
+        # and filter placements) runs through the static analyzer's rules
+        # before/while executing; violations raise PlanVerificationError.
+        self.verify = (getattr(strategy, "verify", False)
+                       if verify is None else verify)
+        # Checkpoint mid-query re-optimization: at every region exchange
+        # boundary the materialized intermediate's measured cardinality is
+        # compared against the optimizer's prediction; past the q-error
+        # threshold the measured stats are folded into the remaining join
+        # graph and the System-R DP re-runs on the remainder. Off by
+        # default, and reopt-off runs take exactly the path they took
+        # before it existed.
+        self.reopt = (getattr(strategy, "reopt", False)
+                      if reopt is None else reopt)
+        self.reopt_qerror = (getattr(strategy, "reopt_qerror",
+                                     DEFAULT_REOPT_QERROR)
+                             if reopt_qerror is None else reopt_qerror)
         self._schema = catalog_schema(catalog)
         self._params = CostParams(p=self.p, w=getattr(strategy, "w", 1.0))
         # Key-domain denominators for the filter planner's sigma estimate.
@@ -310,13 +375,23 @@ class Executor:
         self._decisions: List[JoinDecision] = []
         self._filters: List[FilterDecision] = []
         self._cards: List[CardinalityRecord] = []
+        self._reopts: List[ReoptDecision] = []
         if self.filter_cache is not None:
             # Bind the cache to this catalog: entries built against any
             # other catalog are invalidated before planning.
             self.filter_cache.sync(self.catalog)
+        if self.verify:
+            self._gate(analyze_plan(plan, self._schema,
+                                    catalog_dtypes(self.catalog)))
         if self.reorder:
-            plan = prune_projections(
+            rewritten = prune_projections(
                 push_down_filters(plan, self._schema), self._schema)
+            if self.verify:
+                self._gate(check_schema_preserved(plan, rewritten,
+                                                  self._schema))
+                self._gate(analyze_plan(rewritten, self._schema,
+                                        catalog_dtypes(self.catalog)))
+            plan = rewritten
         t0 = time.perf_counter()
         ann = self._eval(plan)
         if self.device.type == "cuda":
@@ -328,8 +403,12 @@ class Executor:
         strag = sum(d.straggler_bytes for d in self._decisions)
         return ExecutionResult(ann.table, self._decisions, dt, net, loc,
                                ann.table.count(), straggler_bytes=strag,
-                               filters=self._filters,
+                               filters=self._filters, reopts=self._reopts,
                                cardinalities=self._cards)
+
+    def _gate(self, violations: List[Violation]) -> None:
+        if violations:
+            raise PlanVerificationError(violations)
 
     # -- evaluation ------------------------------------------------------------
 
@@ -475,6 +554,13 @@ class Executor:
                                     cache=self.filter_cache)
         if not plan:
             return left, lstats
+        if self.verify:
+            # The executor compensates LEFT_OUTER placements via the
+            # padding path in _eval — that's what licenses F1 here.
+            padded = node.join_type is JoinType.LEFT_OUTER
+            self._gate(check_filter_placement(plan[0], node.join_type,
+                                              padded=padded)
+                       + check_filter_quote(plan[0]))
         left = self._apply_runtime_filter(plan[0], left, right.table,
                                           node.right)
         return left, self._boundary_stats(left, node.left)
@@ -495,6 +581,12 @@ class Executor:
                                     cache=self.filter_cache)
         masked = set()   # leaves already masked by an earlier filter
         for rf in plan:
+            if self.verify:
+                # Region edges are INNER by construction (extract_join_graph
+                # only walks inner joins), so placement is always safe —
+                # the gate still runs to catch a future loosening.
+                self._gate(check_filter_placement(rf, JoinType.INNER)
+                           + check_filter_quote(rf))
             # A build leaf that was itself a probe target earlier in this
             # region no longer matches its static predicate chain — its
             # payload is narrowed by *this query's* other filters and must
@@ -528,9 +620,21 @@ class Executor:
                                   rf.m_bits, rf.k)
             payload = self.filter_cache.lookup(ck)
         cached = payload is not None
+        if cached and self.verify and ck is not None:
+            # F3 reuse side: the cache keys payloads by (chain, key, kind,
+            # shape), so a hit's stored chain must be subset-safe for this
+            # edge's chain.
+            self._gate(check_cache_reuse((ck[0], ck[1]),
+                                         predicate_chain(build_leaf)))
         if payload is None:
             payload = build_filter_payload(rf, build)
             if self.filter_cache is not None and cacheable:
+                if self.verify:
+                    # F3 store side: only chain-faithful payloads may enter
+                    # the cross-query cache.
+                    self._gate(check_cache_store(
+                        predicate_chain(build_leaf),
+                        build_masked=not cacheable))
                 # Store the materialized build table's measurement: the
                 # payload was just built from the real rows, so the true
                 # cardinality is free.
@@ -539,9 +643,12 @@ class Executor:
                                  probe.table.column(rf.probe_key))
         table = probe.table.with_valid(probe.table.valid & keep)
         measured = table.measure()
-        self._filters.append(FilterDecision(rf, probe.table.count(),
-                                            int(measured.cardinality),
-                                            self.p, cached=cached))
+        decision = FilterDecision(rf, probe.table.count(),
+                                  int(measured.cardinality),
+                                  self.p, cached=cached)
+        if self.verify:
+            self._gate(audit_filter_decision(decision))
+        self._filters.append(decision)
         return _Annotated(table, measured,
                           probe.estimated.scaled(rf.keep_est))
 
@@ -583,6 +690,13 @@ class Executor:
         order is re-enumerated with the measured intermediate statistics,
         not just the next method re-selected. The written order is kept
         whenever the DP cannot model a strictly cheaper one.
+
+        Checkpoint re-optimization (``reopt=True``) adds a divergence
+        audit at every boundary: the materialized intermediate's measured
+        cardinality is compared against the optimizer's prediction, and
+        past the q-error threshold the measured stats are folded into the
+        remaining join graph and the DP re-runs on the remainder — even
+        when the written (left-deep) order was standing until then.
         """
         anns = [self._eval(leaf) for leaf in graph.leaves]
         stats = [self._boundary_stats(a, l)
@@ -596,25 +710,106 @@ class Executor:
             return self._exec_region_tree(graph.tree, graph, anns, retain)
         plan_cost = modeled_tree_cost(graph, stats, retain, self._params)
         order = enumerate_join_order(stats, retain, edges, self._params)
-        if order is None or order.cost >= plan_cost * (1 - 1e-9):
+        use_dp = order is not None and order.cost < plan_cost * (1 - 1e-9)
+        written = (self._linear_steps(graph)
+                   if self.reopt and not use_dp else None)
+        if not use_dp and written is None:
+            # Written order stands and no checkpointing is possible (reopt
+            # off, or a bushy written tree): execute the tree as-is.
             return self._exec_region_tree(graph.tree, graph, anns, retain)
-        fallback = [s.build for s in order.steps]
-        cur = anns[order.first]
-        cur_stats = stats[order.first]
-        joined = {order.first}
+        if use_dp:
+            first = order.first
+            fallback = [(s.build, None) for s in order.steps]
+        else:
+            first, fallback = written
+        # Until a checkpoint triggers, a standing written order is executed
+        # verbatim (no step-wise re-plan: that could silently deviate from
+        # the order the DP just declared non-improvable).
+        replanning = use_dp
+        cur = anns[first]
+        cur_stats = stats[first]
+        joined = {first}
+        boundary = 0
         while len(joined) < graph.n:
             rest = [i for i in range(graph.n) if i not in joined]
-            step = self._replan_step(cur_stats, joined, rest, stats, retain,
-                                     edges)
+            step = (self._replan_step(cur_stats, joined, rest, stats,
+                                      retain, edges)
+                    if replanning else None)
             if step is None:
                 step = self._fallback_step(fallback, joined, edges)
+            if self.verify:
+                # R1: adaptive re-plans only follow real join-graph edges.
+                self._gate(check_replan_step(step, joined, edges))
             b = step.build
+            # What the optimizer believes this boundary will produce —
+            # the estimate the checkpoint audits against.
+            predicted = estimate_join(cur_stats, stats[b],
+                                      fk_selectivity=retain[b])
             cur = self._join(cur, anns[b], cur_stats, stats[b],
                              step.probe_key, step.build_key, JoinType.INNER,
                              None, retain=retain[b])
             joined.add(b)
-            cur_stats = cur.measured if self.adaptive else cur.estimated
+            next_stats = cur.measured if self.adaptive else cur.estimated
+            if self.reopt:
+                q = q_error(predicted.cardinality,
+                            cur.measured.cardinality)
+                triggered = q > self.reopt_qerror
+                # Continuation under the *unfolded* policy, for the audit
+                # trail (R2: a non-trigger must not change it).
+                old_next = self._peek_next(replanning, next_stats, joined,
+                                           stats, retain, edges, fallback)
+                if triggered:
+                    # Checkpoint: the intermediate is already materialized
+                    # (every boundary materializes); fold its measured
+                    # stats into the remaining join graph and re-run the
+                    # DP on the remainder.
+                    next_stats = cur.measured
+                    replanning = True
+                    new_next = self._peek_next(True, next_stats, joined,
+                                               stats, retain, edges,
+                                               fallback)
+                else:
+                    new_next = old_next
+                dec = ReoptDecision(boundary, predicted, cur.measured,
+                                    self.reopt_qerror, q, triggered,
+                                    old_next, new_next)
+                if self.verify:
+                    # R2: trigger iff threshold exceeded; non-triggered
+                    # checkpoints leave the continuation untouched.
+                    self._gate(check_reopt_decision(dec))
+                self._reopts.append(dec)
+            cur_stats = next_stats
+            boundary += 1
         return cur
+
+    def _linear_steps(self, graph):
+        """``(first leaf, [(build leaf, edge), ...])`` of a left-deep
+        written region tree — the step form checkpoint re-optimization
+        needs to audit a standing written order. None when the written
+        tree is bushy (the tree path executes it unchanged)."""
+        steps = []
+        t = graph.tree
+        while not isinstance(t, int):
+            if not isinstance(t[1], int):
+                return None
+            steps.append((t[1], graph.edges[t[2]]))
+            t = t[0]
+        steps.reverse()
+        return t, steps
+
+    def _peek_next(self, replanning, cur_stats, joined, stats, retain,
+                   edges, fallback) -> Optional[int]:
+        """Build leaf the current policy would join next (None = region
+        done) — pure lookahead, consumes nothing."""
+        if len(joined) >= len(stats):
+            return None
+        rest = [i for i in range(len(stats)) if i not in joined]
+        step = (self._replan_step(cur_stats, joined, rest, stats, retain,
+                                  edges)
+                if replanning else None)
+        if step is None:
+            step = self._fallback_step(fallback, joined, edges)
+        return step.build
 
     def _replan_step(self, cur_stats, joined, rest, stats, retain, edges):
         """Re-enumerate the remaining join order from the current
@@ -641,11 +836,14 @@ class Executor:
                         s.method, s.cost)
 
     def _fallback_step(self, fallback, joined, edges):
-        """Next feasible step of the DP's static order: the first live
-        join-graph edge of its next unjoined build leaf."""
-        for b in fallback:
+        """Next feasible step from the static ``(build, edge)`` order: a
+        written order carries its own tree edge; DP orders (edge None)
+        take the first live join-graph edge for that build."""
+        for b, e in fallback:
             if b in joined:
                 continue
+            if e is not None and e.probe in joined:
+                return JoinStep(b, e.probe_key, e.build_key, None, 0.0)
             for ed in edges:
                 if ed.build == b and ed.probe in joined:
                     return JoinStep(b, ed.probe_key, ed.build_key, None, 0.0)
@@ -729,9 +927,13 @@ class Executor:
             out = compact_partitions(out)
         probe = hp.order[0]
         build = max(hp.order[1:], key=lambda i: stats[i].size_bytes)
+        props = JoinProperties()
+        if self.verify:
+            self._gate(audit_selection(hp.selection, stats[probe],
+                                       stats[build], props, self._params))
+            self._gate(audit_exchanges(hp.selection, props, rep))
         self._decisions.append(JoinDecision(hp.selection, stats[probe],
-                                            stats[build], rep,
-                                            props=JoinProperties()))
+                                            stats[build], rep, props=props))
         est = anns[probe].estimated
         for i in hp.order[1:]:
             est = estimate_join(est, anns[i].estimated)
@@ -759,18 +961,42 @@ class Executor:
         """Select (per strategy) + execute one physical join; audit it."""
         # Distribution properties: a side already hash-partitioned on its
         # join key gets its shuffle elided by the engine, so the model's
-        # shuffle-family quotes drop that side's network term.
+        # shuffle-family quotes drop that side's network term (the
+        # redundant-exchange finding plan analysis rule E2 pins).
         props = JoinProperties(join_type=join_type, hint=hint,
                                left_partitioned=(left.table.partitioned_by
                                                  == lk),
                                right_partitioned=(right.table.partitioned_by
                                                   == rk))
+        if self.skew_aware:
+            # Adaptive runtime statistic beyond (size, cardinality): the
+            # join-key straggler factor from per-partition load histograms.
+            # A side already hash-partitioned by its join key keeps the
+            # uniform default: its shuffle would be *elided* (§3.7's
+            # C_shuffle = 0 case), so charging a straggler — or salting,
+            # which un-elides the exchange — would regress exactly the
+            # plans the elision optimizes.
+            if left.table.partitioned_by != lk:
+                lstats = lstats.with_skew(
+                    key_skew(left.table, lk, self.p, self.skew_floor))
+            if right.table.partitioned_by != rk:
+                rstats = rstats.with_skew(
+                    key_skew(right.table, rk, self.p, self.skew_floor))
         sel = self.strategy.select(lstats, rstats, props, self.p)
         sel = self._engine_feasible(sel, lstats, rstats, props)
+        if self.verify:
+            # Pre-run cost audit (C1/C2/S1): a bad selection is caught
+            # before any bytes move.
+            self._gate(audit_selection(sel, lstats, rstats, props,
+                                       self._params))
         out, rep = self._run_join_with_retry(sel, left.table, right.table,
                                              lk, rk, join_type.value)
         if self.compact:
             out = compact_partitions(out)
+        if self.verify:
+            # Post-run exchange audit (E1/E2): every elision proven
+            # necessary, every proven partitioning actually elided.
+            self._gate(audit_exchanges(sel, props, rep))
         self._decisions.append(JoinDecision(sel, lstats, rstats, rep,
                                             props=props))
         measured = out.measure()
@@ -811,6 +1037,9 @@ class Executor:
                 # actually runs, not the voided broadcast.
                 cost=sel.costs.get(JoinMethod.SHUFFLE_HASH, sel.cost),
                 reason=sel.reason + "; engine: build side larger -> shuffle")
+        # (The salted method needs no twin guard: selection only emits it
+        # when the A role sits on the plan's left — the side the engine
+        # actually salts.)
         return sel
 
     def _run_join_with_retry(self, sel, left, right, lk, rk, jt):

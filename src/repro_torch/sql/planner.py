@@ -754,13 +754,14 @@ def optimize(plan: Node, catalog: Optional[Catalog] = None, *,
     order (a 2-relation region has nothing to reorder — side roles are
     already assigned by Algorithm 1).
 
-    ``verify=True`` (the plan-analysis gate) and ``plan_cache`` (the
-    cross-query plan cache) come with the plan-verification and service
-    slices of the port and raise ``NotImplementedError`` here.
+    ``verify=True`` arms the plan-analysis debug gate: the input plan is
+    statically analyzed, and the rewritten plan must pass the same
+    analysis *and* preserve the output schema (rule P2) — any violation
+    raises ``PlanVerificationError``.
+
+    ``plan_cache`` (the cross-query plan cache) comes with the service
+    slice of the port and raises ``NotImplementedError`` here.
     """
-    if verify:
-        raise NotImplementedError("optimize(verify=True) comes with the "
-                                  "plan-verification slice of the port")
     if plan_cache is not None:
         raise NotImplementedError("optimize(plan_cache=...) comes with the "
                                   "service slice of the port")
@@ -773,6 +774,15 @@ def optimize(plan: Node, catalog: Optional[Catalog] = None, *,
         base_stats = catalog_base_stats(catalog) if catalog else {}
     if params is None:
         params = CostParams(p=catalog.p if catalog else 8, w=1.0)
+    original = plan
+    if verify:
+        # Imported here: plan_analysis is optimizer-independent, but
+        # keeping the planner import-light avoids pulling the analyzer
+        # into every planner consumer.
+        from .plan_analysis import PlanVerificationError, analyze_plan
+        violations = analyze_plan(plan, schema)
+        if violations:
+            raise PlanVerificationError(violations)
 
     if pushdown:
         plan = push_down_filters(plan, schema)
@@ -821,7 +831,15 @@ def optimize(plan: Node, catalog: Optional[Catalog] = None, *,
             return dataclasses.replace(node, child=rewrite(node.child))
         return node
 
-    return OptimizedPlan(rewrite(plan), regions)
+    rewritten = rewrite(plan)
+    if verify:
+        from .plan_analysis import (PlanVerificationError, analyze_plan,
+                                    check_schema_preserved)
+        violations = (check_schema_preserved(original, rewritten, schema)
+                      + analyze_plan(rewritten, schema))
+        if violations:
+            raise PlanVerificationError(violations)
+    return OptimizedPlan(rewritten, regions)
 
 
 def build_region_plan_order(graph: JoinGraph) -> Node:

@@ -1,7 +1,7 @@
 """The port on an NVIDIA card: each CUDA kernel against its plain version,
-and the main path, the text-only and skew-target suites, the runtime-filter
-path and the reordering and hypercube path on the card against the same
-paths on the CPU.
+and the main path, the text-only and skew-target suites, the skew-aware
+path, the runtime-filter path and the reordering and hypercube path on the
+card against the same paths on the CPU.
 
 Every test here is marked ``cuda`` and skips without a card. The file
 imports neither JAX nor the JAX package, and uses no fixture of
@@ -532,3 +532,74 @@ def test_reorder_and_hypercube_path_on_the_card_equals_the_cpu(cuda):
                           rows_as_set(want.table.to_numpy())), name
     # q35 and q36 take the fused branch: two links on the probe shard.
     assert ops.launch_counts()["tiled_probe3"] >= 2
+
+
+@pytest.mark.parametrize("n", [4_096, 100_003, 3_000_000])
+def test_hist_shared_branch_at_the_hot_bucket_width(cuda, n):
+    """K1's shared branch at nd = 128, the fine buckets ``hot_fine_buckets``
+    counts at p = 8, masked as it calls it, against the plain version."""
+    assert hist_branch(128) == "shared"
+    rng = np.random.default_rng(n)
+    d = on(cuda, rng.integers(0, 128, n).astype(np.int32))
+    v = on(cuda, rng.uniform(size=n) < 0.7)
+    before = partition_hist.branch_launches["shared"]
+    assert torch.equal(partition_hist(d, nd=128, valid=v),
+                       ref.partition_hist_ref(d, 128, v))
+    assert partition_hist.branch_launches["shared"] == before + 1
+
+
+@pytest.mark.parametrize("z", [0.0, 1.2])
+def test_skew_primitives_on_the_card_equal_the_cpu(cuda, z):
+    """``hot_fine_buckets``, ``key_skew`` and the salted shuffle hash join
+    (both local-join paths) on the card equal the CPU's."""
+    from repro_torch.core.cost_model import JoinMethod
+    from repro_torch.joins import exchange, methods
+    from repro_torch.sql import generate
+    card, cpu = (generate(0.1, 8, 11, skew=z),
+                 generate(0.1, 8, 11, skew=z, device="cpu"))
+    ss, ss_cpu = card.table("store_sales"), cpu.table("store_sales")
+    hot, fine = exchange.hot_fine_buckets(ss, "ss_customer_sk", 128, 8)
+    want_hot, want_fine = exchange.hot_fine_buckets(ss_cpu, "ss_customer_sk",
+                                                    128, 8)
+    assert torch.equal(hot.cpu(), want_hot)
+    assert torch.equal(fine.cpu(), want_fine)
+    assert bool(hot.any()) == (z > 0)
+    for key in ("ss_customer_sk", "ss_item_sk"):
+        assert exchange.key_skew(ss, key, 8) == \
+            exchange.key_skew(ss_cpu, key, 8)
+    want, wrep = methods.run_equi_join(
+        JoinMethod.SALTED_SHUFFLE_HASH, ss_cpu, cpu.table("customer"),
+        "ss_customer_sk", "c_customer_sk", salt_r=3)
+    for use_kernel in (False, True):
+        got, grep = methods.run_equi_join(
+            JoinMethod.SALTED_SHUFFLE_HASH, ss, card.table("customer"),
+            "ss_customer_sk", "c_customer_sk", use_kernel=use_kernel,
+            salt_r=3)
+        assert [vars(e) for e in grep.exchanges] == \
+            [vars(e) for e in wrep.exchanges]
+        assert grep.output_rows == wrep.output_rows
+        assert rows_close(rows_as_set(got.to_numpy()),
+                          rows_as_set(want.to_numpy()))
+
+
+def test_skew_aware_path_on_the_card_equals_the_cpu(cuda):
+    """q16-q18 under ``SkewAwareStrategy`` on the Zipf-1.2 catalog, with
+    every gate armed: the card's decisions, bytes and rows equal the CPU's,
+    and K1's shared branch launched."""
+    from repro_torch.sql import (Executor, SkewAwareStrategy, generate,
+                                 skewed_queries)
+    on_card = generate(0.1, 8, 11, skew=1.2)
+    on_cpu = generate(0.1, 8, 11, skew=1.2, device="cpu")
+    shared = partition_hist.branch_launches["shared"]
+    for name, plan in skewed_queries().items():
+        got = Executor(on_card, SkewAwareStrategy(), verify=True).execute(plan)
+        want = Executor(on_cpu, SkewAwareStrategy()).execute(plan)
+        assert [(d.selection.method, d.selection.salt_r, d.left_stats.skew,
+                 d.right_stats.skew) for d in got.decisions] == \
+            [(d.selection.method, d.selection.salt_r, d.left_stats.skew,
+              d.right_stats.skew) for d in want.decisions], name
+        assert (got.network_bytes, got.straggler_bytes) == \
+            (want.network_bytes, want.straggler_bytes), name
+        assert rows_close(rows_as_set(got.table.to_numpy()),
+                          rows_as_set(want.table.to_numpy())), name
+    assert partition_hist.branch_launches["shared"] > shared

@@ -15,6 +15,7 @@ import pytest
 
 from repro.joins.ref import rows_as_set, rows_close
 from repro.sql import Executor as JExecutor
+from repro.sql import RelJoinStrategy as JRelJoinStrategy
 from repro.sql import all_queries as j_all_queries
 from repro.sql import default_strategies as j_default_strategies
 from repro.sql.logical import signature as j_signature
@@ -101,13 +102,30 @@ def test_execution_equals_reference(catalog, port_catalog, query, strategy):
 
 
 @pytest.mark.parametrize("flag", ["verify", "reopt"])
-def test_later_slice_options_raise(port_catalog, flag):
-    with pytest.raises(NotImplementedError):
-        Executor(port_catalog, RelJoinStrategy(), **{flag: True})
-    strat = RelJoinStrategy()
+def test_later_slice_options_raise(catalog, port_catalog, flag):
+    """Named for the guards these options had before their slice: each now
+    runs, and reaches the executor from its argument or from the strategy
+    as it does in the reference. On q1 (no reorderable region without
+    ``reorder``) the run equals the option-off run."""
+    plan = all_queries()["q1_star3"]
+    base = Executor(port_catalog, RelJoinStrategy()).execute(plan)
+    strat, jstrat = RelJoinStrategy(), JRelJoinStrategy()
     setattr(strat, flag, True)
-    with pytest.raises(NotImplementedError):
-        Executor(port_catalog, strat)
+    setattr(jstrat, flag, True)
+    for got, want in (
+            (Executor(port_catalog, RelJoinStrategy(), **{flag: True}),
+             JExecutor(catalog, JRelJoinStrategy(), **{flag: True})),
+            (Executor(port_catalog, strat), JExecutor(catalog, jstrat)),
+            (Executor(port_catalog, strat, **{flag: False}),
+             JExecutor(catalog, jstrat, **{flag: False}))):
+        assert getattr(got, flag) is getattr(want, flag)
+        assert got.reopt_qerror == want.reopt_qerror
+        res = got.execute(plan)
+        assert decisions(res) == decisions(base)
+        assert res.network_bytes == base.network_bytes
+        assert res.reopts == []
+        assert rows_close(rows_as_set(res.table.to_numpy()),
+                          rows_as_set(base.table.to_numpy()))
 
 
 def test_reorder_option_runs(port_catalog):

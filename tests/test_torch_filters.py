@@ -28,6 +28,7 @@ from repro.kernels import zone_map as j_zone_map
 from repro.sql import Executor as JExecutor
 from repro.sql import FilterCache as JFilterCache
 from repro.sql import FilteredStrategy as JFilteredStrategy
+from repro.sql import ReorderingStrategy as JReorderingStrategy
 from repro.sql import default_strategies as j_default_strategies
 from repro.sql import filtered_queries as j_filtered_queries
 from repro.sql import logical as jl
@@ -572,21 +573,52 @@ def test_warm_cache_reuses_every_filter(port_catalog):
 @pytest.mark.parametrize("flag", ["skew_aware", "verify", "reopt"])
 def test_later_slice_flags_raise_through_filtered_strategy(port_catalog,
                                                            flag):
-    inner = default_strategies()[-1]
+    """Named for the guards these flags had before their slices: a flag of
+    the wrapped strategy now reaches the executor through
+    ``FilteredStrategy`` as it does in the reference, and the filtered run
+    keeps the rows and filters of the flag-off run (uniform keys: skew
+    snaps to 1.0; q19 has no reorderable region for ``reopt``)."""
+    plan = filtered_queries()["q19_filtered_customer"]
+    inner, jinner = default_strategies()[-1], j_default_strategies()[-1]
     setattr(inner, flag, True)
-    strat = FilteredStrategy(inner)
-    assert getattr(strat, flag) is True
-    with pytest.raises(NotImplementedError):
-        Executor(port_catalog, strat)
+    setattr(jinner, flag, True)
+    strat, jstrat = FilteredStrategy(inner), JFilteredStrategy(jinner)
+    assert getattr(strat, flag) is getattr(jstrat, flag) is True
+    assert (strat.skew_floor, strat.reopt_qerror) == \
+        (jstrat.skew_floor, jstrat.reopt_qerror)
+    ex = Executor(port_catalog, strat)
+    assert getattr(ex, flag) is True
+    res = ex.execute(plan)
+    base = Executor(port_catalog,
+                    FilteredStrategy(default_strategies()[-1])).execute(plan)
+    assert res.methods() == base.methods()
+    assert [f.plan for f in res.filters] == [f.plan for f in base.filters]
+    assert res.network_bytes == base.network_bytes
+    assert rows_close(rows_as_set(res.table.to_numpy()),
+                      rows_as_set(base.table.to_numpy()))
 
 
 def test_reopt_raises_through_filtered_reordering_strategy(port_catalog):
-    """Reordering runs (the reordering slice); its checkpoint
-    re-optimization still waits for a later one."""
+    """Named for the guard checkpoint re-optimization had before its slice:
+    ``Filtered(Reorder(reopt=True))`` now runs its checkpoints on q20's
+    region, disciplined, with the rows of the reopt-off run."""
     strat = FilteredStrategy(ReorderingStrategy(reopt=True))
+    jstrat = JFilteredStrategy(JReorderingStrategy(reopt=True))
     assert strat.reorder is True and strat.reopt is True
-    with pytest.raises(NotImplementedError):
-        Executor(port_catalog, strat)
+    assert (strat.reopt, strat.reopt_qerror) == (jstrat.reopt,
+                                                 jstrat.reopt_qerror)
+    plan = filtered_queries()["q20_filter_below_earlier_exchange"]
+    res = Executor(port_catalog, strat, verify=True).execute(plan)
+    base = Executor(port_catalog, FilteredStrategy(ReorderingStrategy())
+                    ).execute(plan)
+    assert res.reopts
+    for d in res.reopts:
+        assert d.triggered == (d.q_error > d.threshold)
+        if not d.triggered:
+            assert d.new_next == d.old_next
+    assert res.rows == base.rows
+    assert rows_close(rows_as_set(res.table.to_numpy()),
+                      rows_as_set(base.table.to_numpy()))
 
 
 def test_filtered_strategy_names_equal_reference():

@@ -281,9 +281,21 @@ def test_run_equi_join_equal(method, join_type):
                                     JoinMethod.CARTESIAN,
                                     JoinMethod.SALTED_SHUFFLE_HASH])
 def test_later_slice_methods_raise(method):
-    _, _, (_, ta), (_, tb) = fact_dim(0)
-    with pytest.raises(NotImplementedError):
-        methods.run_equi_join(method, ta, tb, "k", "k")
+    """The nested-loop methods still wait for their slice. The salted
+    shuffle hash join (the skew slice) now runs through ``run_equi_join``
+    and equals the reference's, report and rows."""
+    a, b, (ja, ta), (jb, tb) = fact_dim(0)
+    if method is not JoinMethod.SALTED_SHUFFLE_HASH:
+        with pytest.raises(NotImplementedError):
+            methods.run_equi_join(method, ta, tb, "k", "k")
+        return
+    jout, jrep = jmethods.run_equi_join(JJoinMethod(method.value), ja, jb,
+                                        "k", "k")
+    tout, trep = methods.run_equi_join(method, ta, tb, "k", "k")
+    assert _report_dict(trep) == _report_dict(jrep)
+    assert rows_as_set(tout.to_numpy()) == rows_as_set(jout.to_numpy()) == \
+        rows_as_set(ref_equi_join(a, b, "k", "k", "inner"))
+    assert tout.partitioned_by is None
 
 
 # ---------------------------------------------------------------------------

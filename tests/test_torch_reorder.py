@@ -130,11 +130,29 @@ def test_reordering_strategy_equals_reference(w):
         JReorderingStrategy(reopt=True).name
 
 
-def test_reopt_through_reordering_strategy_raises(port_catalog):
-    with pytest.raises(NotImplementedError):
-        Executor(port_catalog, ReorderingStrategy(reopt=True))
-    with pytest.raises(NotImplementedError):
-        Executor(port_catalog, RelJoinStrategy(), reorder=True, reopt=True)
+def test_reopt_through_reordering_strategy_raises(catalog, port_catalog):
+    """Named for the guard checkpoint re-optimization had before its slice:
+    ``reopt`` now reaches the executor from ``ReorderingStrategy`` or from
+    the executor's arguments, as in the reference, and q13 runs with its
+    checkpoints audited and the rows of the reopt-off run."""
+    for got, want in (
+            (Executor(port_catalog, ReorderingStrategy(reopt=True)),
+             JExecutor(catalog, JReorderingStrategy(reopt=True))),
+            (Executor(port_catalog, RelJoinStrategy(), reorder=True,
+                      reopt=True),
+             JExecutor(catalog, JRelJoinStrategy(), reorder=True,
+                       reopt=True))):
+        assert (got.reorder, got.reopt, got.reopt_qerror) == \
+            (want.reorder, want.reopt, want.reopt_qerror)
+    plan = misordered_queries()["q13_fact_fact_first"]
+    res = Executor(port_catalog, ReorderingStrategy(reopt=True),
+                   verify=True).execute(plan)
+    base = Executor(port_catalog, ReorderingStrategy()).execute(plan)
+    assert res.reopts and res.reopt_count == 0
+    assert decisions(res) == decisions(base)
+    assert res.network_bytes == base.network_bytes
+    assert rows_close(rows_as_set(res.table.to_numpy()),
+                      rows_as_set(base.table.to_numpy()))
 
 
 # ---------------------------------------------------------------------------
@@ -240,10 +258,16 @@ def test_enumerate_join_order_equals_reference(catalog, port_catalog, query,
             assert canon(got) == canon(want), start
 
 
-def test_optimize_later_slice_options_raise(port_catalog):
+def test_optimize_later_slice_options_raise(catalog, port_catalog):
+    """``verify=True`` (the plan-verification slice) now runs and gives the
+    reference's plan and regions; ``plan_cache`` still waits for the
+    service slice."""
     plan = misordered_queries()["q13_fact_fact_first"]
-    with pytest.raises(NotImplementedError):
-        optimize(plan, port_catalog, verify=True)
+    got = optimize(plan, port_catalog, verify=True)
+    want = jp.optimize(j_misordered_queries()["q13_fact_fact_first"],
+                       catalog, verify=True)
+    assert signature(got.plan) == j_signature(want.plan)
+    assert canon(got.regions) == canon(want.regions)
     with pytest.raises(NotImplementedError):
         optimize(plan, port_catalog, plan_cache=object())
 
