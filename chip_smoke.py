@@ -88,6 +88,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    chain triggers): every checkpoint disciplined, rows as with reopt off.
    Then the histogram timed at ``hot_fine_buckets``' largest input, as in
    phase 4, as the JSON line's second partition_hist entry;
+5e. the query service and the nested-loop joins on phase 4's catalog: the
+   service suite (q19-q23, q33, q34) as one unbudgeted batch of
+   ``QueryService(catalog, verify=True)``, after a warm-up batch, with the
+   launch counts set to 0 just before the reported batch and read just
+   after: K1, K2, K4, K5 and K6 launched (K3's count printed); every
+   query's rows equal its ``execute_solo`` run; the q19/q33 and q22/q34
+   pairs shared, q33 and q34 running no join and moving no byte; fewer
+   joins and network bytes than the solo runs; the batch's wall beside the
+   sum of the solo walls. Then the suite resubmitted (every submission a
+   plan-cache hit, the filter cache's hits rising), a run under a cost
+   budget of half the suite's summed quotes with ``policy="cost"`` (more
+   than one batch, the same rows), one batch under ``torch.profiler``; then
+   store_sales against store and date_dim (their odd keys masked) under
+   ``BROADCAST_NL`` and ``CARTESIAN`` (rows equal ``BROADCAST_HASH``'s for
+   inner, left_semi and left_anti; wall time and chunk count of each);
 6. cross-checks: the decisions at ``generate(0.1, 4, 42)`` of q1-q37 under
    the four default strategies and of q13-q15 and q35-q37 under
    ``Reorder(RelJoin)`` (154), and ``optimize``'s reordering and plan
@@ -96,7 +111,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    CPU; at scale 3 the gather path (``use_kernel=False``) gives the
    rows of the kernel path on q1-q12, q16-q18 and q24-q34; and
    ``repro_torch.sql.plan_analysis.main`` (37 plans x 9 strategies with
-   every gate armed, at ``generate(0.05, 4, 42)``) reports no violation.
+   every gate armed, at ``generate(0.05, 4, 42)``) reports no violation;
+   and ``repro_torch.sql.service.main`` (the service suite batched against
+   its solo runs at ``generate(0.05, 4, 11)``) returns 0.
 
 With ``--save-inputs PATH`` it saves the inputs at which it timed the
 bitonic sort, the bloom build and key_range, for
@@ -2112,6 +2129,224 @@ def run_skew_path(uniform, dev, scale: float):
 
 
 # ---------------------------------------------------------------------------
+# Phase 5e: the query service and the nested-loop joins
+# ---------------------------------------------------------------------------
+
+#: The shared-subtree pairs of the service suite: q33 repeats q19's join
+#: and q34 repeats q22's.
+SHARED_PAIRS = (("q19_filtered_customer", "q33_shared_customer_join"),
+                ("q22_zone_map_window", "q34_shared_window_join"))
+#: The kernels the service batch must launch (K3 only where RelJoin picks a
+#: sort join).
+SERVICE_KERNELS = ("partition_hist", "tiled_probe") + FILTER_KERNELS
+
+
+def service_batch(catalog, **kw):
+    """The service suite submitted to a fresh ``QueryService`` with every
+    plan-analysis gate armed, and the service's batch reports."""
+    from repro_torch.sql import QueryService, service_queries
+
+    service = QueryService(catalog, verify=True, **kw)
+    for qname, plan in service_queries().items():
+        service.submit(plan, name=qname)
+    return service, service.run()
+
+
+def run_service_path(catalog) -> None:
+    """Phase 5e. The service suite (q19-q23, q33, q34) as one unbudgeted
+    batch of a ``QueryService(catalog, verify=True)``, after a warm-up
+    batch, with every launch count set to 0 just before the reported batch
+    and read just after: rows equal each query's ``execute_solo`` run, the
+    two pairs shared, q33 and q34 run no join, fewer joins and bytes than
+    serial. Then the suite resubmitted (every plan a cache hit, the filter
+    cache's hits rising), a cost-budgeted run (more than one batch, the
+    same rows) and one batch under ``torch.profiler``. Then the nested-loop
+    joins on the card against the broadcast hash join."""
+    import numpy as np
+    import torch
+
+    from repro_torch.joins.ref import rows_as_set, rows_close
+    from repro_torch.kernels import ops
+    from repro_torch.sql import QueryService, service_queries
+
+    queries = service_queries()
+    require(len(queries) == 7, f"q19-q23, q33, q34: {sorted(queries)}")
+
+    t_warm = time.perf_counter()
+    service_batch(catalog)  # first calls of every torch op, not reported
+    print(f"  warm-up batch: {time.perf_counter() - t_warm:.1f} s")
+
+    service = QueryService(catalog, verify=True)
+    subs = {q: service.submit(plan, name=q) for q, plan in queries.items()}
+    ops.reset_launch_counts()
+    reports = service.run()
+    launches = ops.launch_counts()
+    require(len(reports) == 1, f"unbudgeted run formed {len(reports)} "
+            "batches")
+    report = reports[0]
+    print(f"  batch: wall {report.wall_time_s * 1e3:.2f} ms (host clock, "
+          f"ends in a synchronize); launches {launches}; bitonic_sort_tile "
+          f"{launches['bitonic_sort_tile']} (not required)")
+    for name in SERVICE_KERNELS:
+        require(launches[name] > 0,
+                f"kernel {name} never launched on the service batch")
+    for s in report.shared:
+        print(f"  shared x{s.occurrences} {','.join(s.consumers)}: "
+              f"{','.join(m.value for m in s.result.methods())} "
+              f"net={s.result.network_bytes:.0f} rows={s.result.rows} "
+              f"wall={s.result.wall_time_s * 1e3:.2f}ms")
+    by_consumers = {frozenset(s.consumers) for s in report.shared}
+    for pair in SHARED_PAIRS:
+        require(frozenset(pair) in by_consumers, f"{pair} not shared")
+
+    serial_bytes, serial_joins, solo_wall, solo_call = 0.0, 0, 0.0, 0.0
+    for qname, plan in queries.items():
+        res = report.results[qname]
+        t0 = time.perf_counter()
+        solo = service.execute_solo(plan)
+        torch.cuda.synchronize()
+        solo_call += time.perf_counter() - t0
+        serial_bytes += solo.network_bytes
+        serial_joins += len(solo.decisions)
+        solo_wall += solo.wall_time_s
+        cols = res.table.to_numpy()
+        require(rows_close(rows_as_set(cols),
+                           rows_as_set(solo.table.to_numpy())),
+                f"{qname}: batched rows differ from solo")
+        for name, c in cols.items():
+            if c.dtype.kind == "f":
+                require(bool(np.isfinite(c).all()),
+                        f"{qname}: non-finite {name}")
+        print(f"  {qname:26s} quote={subs[qname].quoted_cost:.0f} "
+              f"{','.join(m.value for m in res.methods()) or '-':29s} "
+              f"net={res.network_bytes:.0f} rows={res.rows} "
+              f"wall={res.wall_time_s * 1e3:.2f}ms; solo "
+              f"{','.join(m.value for m in solo.methods())} "
+              f"net={solo.network_bytes:.0f} "
+              f"wall={solo.wall_time_s * 1e3:.2f}ms; rows equal")
+    for qname in (pair[1] for pair in SHARED_PAIRS):
+        res = report.results[qname]
+        require(not res.decisions and res.network_bytes == 0,
+                f"{qname}: {len(res.decisions)} joins, "
+                f"{res.network_bytes:.0f} bytes")
+    batch_joins = (sum(len(s.result.decisions) for s in report.shared)
+                   + sum(len(r.decisions) for r in report.results.values()))
+    require(batch_joins < serial_joins,
+            f"batched joins {batch_joins} not below serial {serial_joins}")
+    require(report.total_network_bytes < serial_bytes,
+            f"batched bytes {report.total_network_bytes:.0f} not below "
+            f"serial {serial_bytes:.0f}")
+    print(f"  batched {batch_joins} joins, {report.total_network_bytes:.0f} "
+          f"bytes; serial {serial_joins} joins, {serial_bytes:.0f} bytes; "
+          f"wall: batch {report.wall_time_s * 1e3:.2f} ms (gates and "
+          f"execution), sum of solo walls {solo_wall * 1e3:.2f} ms "
+          f"(execution), sum of execute_solo calls {solo_call * 1e3:.2f} ms "
+          f"(optimize, gates and execution); stats {service.stats()}")
+
+    hits = service.filter_cache.hits
+    warm = [service.submit(plan, name=q) for q, plan in queries.items()]
+    require(all(s.plan_cached for s in warm),
+            "a resubmission missed the plan cache")
+    again = service.run()
+    require(service.filter_cache.hits > hits,
+            "the warm batch took no filter from the cache")
+    for qname in queries:
+        require(rows_close(rows_as_set(again[0].results[qname].table
+                                       .to_numpy()),
+                           rows_as_set(report.results[qname].table
+                                       .to_numpy())),
+                f"{qname}: warm batch rows differ")
+    print(f"  warm resubmission: {len(warm)} of {len(warm)} plan-cache "
+          f"hits, filter-cache hits {hits} -> {service.filter_cache.hits}, "
+          f"wall {again[0].wall_time_s * 1e3:.2f} ms, rows unchanged")
+
+    budget = sum(s.quoted_cost for s in subs.values()) / 2
+    _, split = service_batch(catalog, cost_budget=budget, policy="cost")
+    require(len(split) > 1, f"budget {budget:.0f} formed one batch")
+    require(sorted(q for r in split for q in r.results) == sorted(queries),
+            "the budgeted run did not run every query once")
+    for r in split:
+        for qname, res in r.results.items():
+            require(rows_close(rows_as_set(res.table.to_numpy()),
+                               rows_as_set(report.results[qname].table
+                                           .to_numpy())),
+                    f"{qname}: budgeted rows differ")
+    print(f"  budget {budget:.0f} (policy cost): {len(split)} batches "
+          + " | ".join(",".join(r.results) + f" {r.wall_time_s * 1e3:.2f}ms"
+                       for r in split) + "; rows unchanged")
+
+    profile_pass(lambda: service_batch(catalog)[1])
+    torch.cuda.synchronize()
+    t_nl = time.perf_counter()
+    run_nested_loop_joins(catalog)
+    print(f"  nested-loop joins: {time.perf_counter() - t_nl:.1f} s, row "
+          "checks included")
+
+
+def same_probe_rows(a, b) -> bool:
+    """Row-for-row equality of two joins' outputs on the same probe table:
+    every method that keeps the probe side's layout (the broadcast hash
+    join, both nested-loop joins) leaves each output row where its probe
+    row was, so the validity masks and the valid entries of every column
+    must be equal, on the card."""
+    import torch
+    if list(a.columns) != list(b.columns) or not torch.equal(a.valid,
+                                                             b.valid):
+        return False
+    return all(torch.equal(torch.where(a.valid, a.columns[n], 0),
+                           torch.where(b.valid, b.columns[n], 0))
+               for n in a.columns)
+
+
+def run_nested_loop_joins(catalog) -> None:
+    """store_sales against store and date_dim under BROADCAST_NL and
+    CARTESIAN through ``run_equi_join``: rows equal BROADCAST_HASH's for
+    inner, left_semi and left_anti; wall time and chunk count of each. The
+    dimension's odd keys are masked invalid, so that the semi and the anti
+    join both keep rows and the nested loop meets invalid build rows."""
+    import torch
+
+    from repro_torch.core.cost_model import JoinMethod
+    from repro_torch.joins.exchange import broadcast
+    from repro_torch.joins.local_join import nl_chunk_rows
+    from repro_torch.joins.methods import run_equi_join
+
+    fact = catalog.table("store_sales")
+    for dim, a_key, b_key in (("store", "ss_store_sk", "s_store_sk"),
+                              ("date_dim", "ss_sold_date_sk", "d_date_sk")):
+        b = catalog.table(dim)
+        b = b.with_valid(b.valid & (b.column(b_key) % 2 == 0))
+        nb = broadcast(b)[0].valid.shape[0]
+        chunks = -(-fact.valid.numel() // nl_chunk_rows(nb))
+        for jt in ("inner", "left_semi", "left_anti"):
+            runs = {}
+            for method in (JoinMethod.BROADCAST_HASH, JoinMethod.BROADCAST_NL,
+                           JoinMethod.CARTESIAN):
+                run_equi_join(method, fact, b, a_key, b_key, jt,
+                              use_kernel=True)  # warm-up
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out, rep = run_equi_join(method, fact, b, a_key, b_key, jt,
+                                         use_kernel=True)
+                torch.cuda.synchronize()
+                runs[method] = (out, rep, time.perf_counter() - t0)
+            base = runs[JoinMethod.BROADCAST_HASH][0]
+            cells = []
+            for method, (out, rep, wall) in runs.items():
+                if method is not JoinMethod.BROADCAST_HASH:
+                    require(same_probe_rows(out, base),
+                            f"{dim} {jt} {method.value}: rows differ from "
+                            "broadcast_hash")
+                net = sum(e.network_bytes for e in rep.exchanges)
+                cells.append(f"{method.value} {wall * 1e3:.2f}ms "
+                             f"net={net:.0f} local={rep.local_bytes:.0f}")
+            print(f"  store_sales x {dim} ({fact.valid.numel()} x {nb} rows, "
+                  f"{chunks} chunks) {jt:9s} rows={rep.output_rows}: "
+                  + " | ".join(cells) + "; NL rows equal broadcast_hash, "
+                  "row for row")
+
+
+# ---------------------------------------------------------------------------
 # Phase 5b: reordering and the hypercube
 # ---------------------------------------------------------------------------
 
@@ -2477,16 +2712,19 @@ def main() -> int:
     with phase("5d. skew, re-optimization and verification"):
         launches, (dest, valid, nd) = run_skew_path(catalog, dev,
                                                     args.scale)
-        del catalog
         print("  partition_hist timing at hot_fine_buckets' largest input "
               f"({smi}):")
         rows.append(measure_hist(dest, nd, valid,
                                  launches["partition_hist"]))
         report_kernels(rows[-1:])
 
+    with phase("5e. the query service and the nested-loop joins"):
+        run_service_path(catalog)
+        del catalog
+
     with phase("6. cross-checks"):
         from repro_torch.sql import generate
-        from repro_torch.sql import plan_analysis
+        from repro_torch.sql import plan_analysis, service
         small = generate(0.1, 4, 42, device=dev)
         check_golden(small)
         check_filters_against_cpu(small)
@@ -2496,6 +2734,10 @@ def main() -> int:
                                    "--seed", "42"])
         require(code == 0, "plan_analysis.main reported violations")
         print(f"  plan_analysis.main on the card: 0 violations in "
+              f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        require(service.main([]) == 0, "service.main failed")
+        print(f"  service.main on the card: 0 failures in "
               f"{time.perf_counter() - t0:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -14,14 +14,16 @@ hash, then match keys within each bucket (the ``tiled_probe`` kernel, one
 launch for every partition and bucket; a gather path with identical
 semantics stays available). The *sort* join sorts the build side (the
 ``bitonic_sort_tile`` kernel, or a stable sort) and merges by binary search.
-The nested-loop join comes with a later slice of the port.
+The *nested-loop* join evaluates an arbitrary row predicate on every
+(probe row, build row) pair, in chunks of probe rows that bound the pair
+matrix's memory.
 
 Invalid-row sentinels: probe side -1, build side -2 (never equal).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -32,6 +34,9 @@ from .slots import BUCKET_SEED, group_by_dest, hash32, slot_scatter
 A_SENTINEL = -1
 B_SENTINEL = -2
 INT32_MAX = torch.iinfo(torch.int32).max
+#: Most (probe row, build row) pairs one nested-loop chunk evaluates: its
+#: predicate's boolean matrices stay near 64 MB each.
+NL_MAX_PAIRS = 1 << 26
 
 
 class LocalJoinResult(NamedTuple):
@@ -191,3 +196,49 @@ def sort_join(a_keys: torch.Tensor, a_valid: torch.Tensor,
     idx = torch.gather(b_perm, 1, pos)
     found = found & _take_rows(b_valid, idx)
     return LocalJoinResult(torch.where(found, idx, -1).to(torch.int32), found)
+
+
+# ---------------------------------------------------------------------------
+# Nested loop (arbitrary predicate; O(na * nb)).
+# ---------------------------------------------------------------------------
+
+def nl_chunk_rows(nb: int, max_pairs: int = NL_MAX_PAIRS) -> int:
+    """Probe rows per nested-loop chunk against ``nb`` build rows."""
+    return max(1, max_pairs // max(nb, 1))
+
+
+def nested_loop_join(a_cols: dict, a_valid: torch.Tensor,
+                     b_cols: dict, b_valid: torch.Tensor,
+                     predicate: Callable[[dict, dict], torch.Tensor],
+                     *, max_pairs: int = NL_MAX_PAIRS) -> LocalJoinResult:
+    """First-match nested loop with an arbitrary row predicate.
+
+    A's columns are ``(P, na)``, B's ``(nb,)``: one replica every
+    partition reads. ``predicate`` receives A columns shaped (n, 1) and B
+    columns shaped (1, nb) and returns an (n, nb) boolean matrix. The
+    reference evaluates every partition's whole (na, nb) matrix at once;
+    here A's rows, all partitions flattened, are taken ``nl_chunk_rows``
+    at a time, so no matrix holds more than ``max_pairs`` entries. Each
+    probe row keeps its first matching build row: ``torch.argmax``
+    returns the first maximal index, as ``jnp.argmax`` does, and takes no
+    bool input, hence the ``uint8``.
+    """
+    shape = a_valid.shape
+    av = a_valid.reshape(-1)
+    flat = {n: c.reshape(-1) for n, c in a_cols.items()}
+    b_b = {n: c[None, :] for n, c in b_cols.items()}
+    nb = b_valid.shape[0]
+    idx = torch.full((av.numel(),), -1, dtype=torch.int32,
+                     device=av.device)
+    found = torch.zeros(av.numel(), dtype=torch.bool, device=av.device)
+    if nb:
+        step = nl_chunk_rows(nb, max_pairs)
+        for s in range(0, av.numel(), step):
+            a_b = {n: c[s:s + step, None] for n, c in flat.items()}
+            hit = (predicate(a_b, b_b) & av[s:s + step, None]
+                   & b_valid[None, :])
+            f = hit.any(dim=1)
+            first = torch.argmax(hit.to(torch.uint8), dim=1)
+            idx[s:s + step] = torch.where(f, first, -1).to(torch.int32)
+            found[s:s + step] = f
+    return LocalJoinResult(idx.reshape(shape), found.reshape(shape))

@@ -14,13 +14,14 @@ The salted shuffle hash join spreads hot probe keys over several
 partitions and replicates their build rows. The hypercube multi-way join
 evaluates a cyclic join core in one replication exchange per relation and
 one local probe chain per partition. The nested-loop and cartesian methods
-come with a later slice of the port.
+evaluate the join as a row predicate against a broadcast replica.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Callable
 
 import torch
 
@@ -29,7 +30,7 @@ from ..kernels import ops as kops
 from .exchange import (ExchangeReport, broadcast, hypercube_shuffle,
                        salted_shuffle, shuffle)
 from .local_join import (A_SENTINEL, B_SENTINEL, LocalJoinResult, hash_join,
-                         sort_join)
+                         nested_loop_join, sort_join)
 from .slots import gather_rows
 from .table import Table
 
@@ -174,6 +175,52 @@ def shuffle_sort_join(a: Table, b: Table, a_key: str, b_key: str,
     return out, rep
 
 
+def broadcast_nl_join(a: Table, b: Table,
+                      predicate: Callable[[dict, dict], torch.Tensor],
+                      join_type: str = "inner",
+                      b_key: str = "") -> tuple[Table, JoinReport]:
+    """Broadcast B; nested-loop each A partition against the replica."""
+    b_full, ex = broadcast(b)
+    res = nested_loop_join(a.columns, a.valid, b_full.columns, b_full.valid,
+                           predicate)
+    out = _finish(a, b_full.columns, res, join_type, b_key)
+    nl_bytes = float(a.count() * a.row_bytes
+                     + a.count() * b_full.count() * b_full.row_bytes / 1.0)
+    rep = JoinReport(JoinMethod.BROADCAST_NL, [ex], nl_bytes, out.count())
+    return out, rep
+
+
+def cartesian_join(a: Table, b: Table,
+                   predicate: Callable[[dict, dict], torch.Tensor],
+                   join_type: str = "inner",
+                   b_key: str = "") -> tuple[Table, JoinReport]:
+    """Shuffle-NL: co-shuffle by a synthetic round-robin key so every
+    (A-partition, B-partition) pair meets once; NL within pairs.
+
+    Implementation mirrors Spark's CartesianProduct for *selective*
+    predicates with first-match semantics (the engine's NL joins resolve at
+    most one build match per probe row — sufficient for the non-equi
+    predicates in the query suite). The rows are the broadcast NL join's;
+    the report measures the exchange as a shuffle of both sides (Eq. 5).
+    """
+    p = a.num_partitions
+    b_full, _ = broadcast(b)
+    res = nested_loop_join(a.columns, a.valid, b_full.columns, b_full.valid,
+                           predicate)
+    out = _finish(a, b_full.columns, res, join_type, b_key)
+    rows_b = b_full.count()
+    shuffle_like = ExchangeReport(
+        "shuffle",
+        network_bytes=(p - 1) / p * (a.count() * a.row_bytes
+                                     + rows_b * b_full.row_bytes),
+        local_bytes=(a.count() * a.row_bytes + rows_b * b_full.row_bytes) / p)
+    nl_bytes = float(a.count() * a.row_bytes
+                     + a.count() / p * rows_b * b_full.row_bytes)
+    rep = JoinReport(JoinMethod.CARTESIAN, [shuffle_like], nl_bytes,
+                     out.count())
+    return out, rep
+
+
 # ---------------------------------------------------------------------------
 # Hypercube multi-way shuffle join (cyclic join graphs).
 # ---------------------------------------------------------------------------
@@ -301,6 +348,11 @@ def run_equi_join(method: JoinMethod, a: Table, b: Table, a_key: str,
                   capacity_factor: float = 2.0,
                   salt_r: int = 2) -> tuple[Table, JoinReport]:
     """Dispatch an equi-join to the selected physical method."""
+    if method in (JoinMethod.BROADCAST_NL, JoinMethod.CARTESIAN):
+        pred = lambda ac, bc: ac[a_key] == bc[b_key]  # noqa: E731
+        fn = (broadcast_nl_join if method is JoinMethod.BROADCAST_NL
+              else cartesian_join)
+        return fn(a, b, pred, join_type, b_key)
     if method is JoinMethod.BROADCAST_HASH:
         return broadcast_hash_join(a, b, a_key, b_key, join_type, use_kernel)
     if method is JoinMethod.SHUFFLE_HASH:
@@ -313,7 +365,4 @@ def run_equi_join(method: JoinMethod, a: Table, b: Table, a_key: str,
     if method is JoinMethod.SHUFFLE_SORT:
         return shuffle_sort_join(a, b, a_key, b_key, join_type,
                                  capacity_factor, use_kernel)
-    if method in (JoinMethod.BROADCAST_NL, JoinMethod.CARTESIAN):
-        raise NotImplementedError(f"{method.value} comes with the "
-                                  "nested-loop slice of the port")
     raise ValueError(f"unknown method {method}")

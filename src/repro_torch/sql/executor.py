@@ -35,8 +35,9 @@ Plan verification (``verify=True``): every plan, re-plan, filter placement
 and decision runs through the plan-analysis rules, and a violation raises
 ``PlanVerificationError``.
 
-Shared intermediates come with the service slice of the port and raise
-``NotImplementedError`` here.
+Shared intermediates (``intermediates=``, the query service's cross-query
+subtree sharing): a Join or Aggregate whose signature is given returns the
+injected table in place of running the subtree.
 """
 
 from __future__ import annotations
@@ -62,7 +63,7 @@ from .datagen import Catalog
 from .logical import (Aggregate, Filter, Join, JoinEdge, Node, Project,
                       RuntimeFilter, Scan, augment_edges,
                       effective_selectivity, extract_join_graph,
-                      key_retain_fraction, leaf_columns)
+                      key_retain_fraction, leaf_columns, signature)
 from .plan_analysis import (PlanVerificationError, Violation, analyze_plan,
                             audit_exchanges, audit_filter_decision,
                             audit_selection, catalog_dtypes, check_cache_reuse,
@@ -306,9 +307,6 @@ class Executor:
                  intermediates: Optional[Dict[str, Table]] = None,
                  reopt: Optional[bool] = None,
                  reopt_qerror: Optional[float] = None):
-        if intermediates:
-            raise NotImplementedError("shared intermediates come with the "
-                                      "service slice of the port")
         self.catalog = catalog
         self.strategy = strategy
         self.adaptive = adaptive
@@ -363,6 +361,11 @@ class Executor:
         self.reopt_qerror = (getattr(strategy, "reopt_qerror",
                                      DEFAULT_REOPT_QERROR)
                              if reopt_qerror is None else reopt_qerror)
+        # Cross-query CSE injection (QueryService): pre-computed tables for
+        # shared exchange-rooted subtrees, keyed on ``logical.signature``.
+        # ``_eval`` returns them in place of re-executing the subtree.
+        self.intermediates: Dict[str, Table] = (
+            dict(intermediates) if intermediates else {})
         self._schema = catalog_schema(catalog)
         self._params = CostParams(p=self.p, w=getattr(strategy, "w", 1.0))
         # Key-domain denominators for the filter planner's sigma estimate.
@@ -413,6 +416,19 @@ class Executor:
     # -- evaluation ------------------------------------------------------------
 
     def _eval(self, node: Node) -> _Annotated:
+        if self.intermediates and isinstance(node, (Join, Aggregate)):
+            # Cross-query CSE: a shared exchange-rooted subtree another
+            # query (or an earlier producer pass) already materialized is
+            # consumed directly — no joins run, no bytes move. Every
+            # operator derives a new table and writes no input tensor in
+            # place, so fanning one table out to many consumers is safe.
+            # Measured stats stand in for both channels: the subtree root
+            # is an exchange boundary, where adaptive execution would
+            # re-measure anyway.
+            shared = self.intermediates.get(signature(node))
+            if shared is not None:
+                measured = shared.measure()
+                return _Annotated(shared, measured, measured)
         if isinstance(node, Scan):
             t = self.catalog.table(node.table)
             measured = t.measure()

@@ -24,8 +24,9 @@ The DP only ever *replaces* the written order when its modeled workload is
 strictly lower, so enabling reordering can't regress a well-written plan
 under the model. ``Executor`` re-runs the same DP at every exchange
 boundary with runtime-measured statistics (adaptive re-planning), via
-``enumerate_join_order(..., start=...)``. The cross-query plan cache and
-the plan-verification gate come with later slices of the port.
+``enumerate_join_order(..., start=...)``. ``PlanCache`` keeps compiled
+plans across queries, and ``optimize(verify=True)`` arms the
+plan-verification gate.
 """
 
 from __future__ import annotations
@@ -42,11 +43,11 @@ from ..core.selection import (JoinProperties, JoinType, Selection,
 from ..core.stats import (DEFAULT_WATERMARK_BYTES, ColumnStats, TableStats,
                           estimate_filter, estimate_group_by, estimate_join,
                           estimate_project)
-from .datagen import Catalog
+from .datagen import Catalog, catalog_fingerprint
 from .logical import (Aggregate, Filter, Join, JoinGraph, Node, Project,
                       RuntimeFilter, Scan, Schema, augment_edges,
                       cyclic_core, extract_join_graph, filter_chain,
-                      key_band_fraction, leaf_columns)
+                      key_band_fraction, leaf_columns, signature)
 from .runtime_filters import (DEFAULT_FILTER_KINDS, FILTER_KINDS,
                               FilterCache, filter_cache_key)
 from .selectivity import derive_selectivity
@@ -700,6 +701,59 @@ class OptimizedPlan:
         return any(r.reordered for r in self.regions)
 
 
+class PlanCache:
+    """Cross-query compiled-plan cache, mirroring ``FilterCache``'s key
+    discipline.
+
+    Entries are keyed on ``logical.signature(plan)`` plus every
+    ``optimize()`` knob that changes the emitted plan (pushdown / prune /
+    reorder / bushy / min_region and the cost parameters ``p`` / ``w``),
+    and the whole cache is bound to one catalog identity fingerprint
+    (version + generation uid) via ``sync`` — a catalog change invalidates
+    everything, exactly like ``FilterCache.sync``. A warm hit returns the
+    stored ``OptimizedPlan`` and skips the rewrite + DP work entirely;
+    ``signature()`` covers filter literals and aggregate specs, so two
+    queries share an entry only when their logical plans are identical.
+    """
+
+    def __init__(self) -> None:
+        self._entries: Dict[tuple, OptimizedPlan] = {}
+        self._catalog_fingerprint: Optional[tuple] = None
+        self.hits = 0
+        self.misses = 0
+        self.invalidations = 0
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def sync(self, catalog: Catalog) -> None:
+        """Bind the cache to ``catalog``; drop every entry if it is not
+        the catalog the current plans were optimized against."""
+        fingerprint = catalog_fingerprint(catalog)
+        if fingerprint != self._catalog_fingerprint:
+            if self._entries:
+                self.invalidations += 1
+            self._entries.clear()
+            self._catalog_fingerprint = fingerprint
+
+    @staticmethod
+    def key(plan: Node, params: CostParams, *, pushdown: bool, prune: bool,
+            reorder: bool, bushy: bool, min_region: int) -> tuple:
+        return (signature(plan), pushdown, prune, reorder, bushy,
+                min_region, params.p, params.w)
+
+    def lookup(self, key: tuple) -> Optional[OptimizedPlan]:
+        entry = self._entries.get(key)
+        if entry is None:
+            self.misses += 1
+        else:
+            self.hits += 1
+        return entry
+
+    def store(self, key: tuple, optimized: OptimizedPlan) -> None:
+        self._entries[key] = optimized
+
+
 def modeled_plan_cost(plan: Node, base_stats: Dict[str, TableStats],
                       schema: Schema, params: CostParams,
                       key_domains: Optional[Dict[str, float]] = None,
@@ -746,7 +800,7 @@ def optimize(plan: Node, catalog: Optional[Catalog] = None, *,
              pushdown: bool = True, prune: bool = True,
              reorder: bool = True, bushy: bool = False,
              min_region: int = 3, verify: bool = False,
-             plan_cache=None) -> OptimizedPlan:
+             plan_cache: Optional[PlanCache] = None) -> OptimizedPlan:
     """Full logical optimization pass.
 
     Statistics come from ``catalog`` (exact base stats) unless ``base_stats``
@@ -759,12 +813,12 @@ def optimize(plan: Node, catalog: Optional[Catalog] = None, *,
     analysis *and* preserve the output schema (rule P2) — any violation
     raises ``PlanVerificationError``.
 
-    ``plan_cache`` (the cross-query plan cache) comes with the service
-    slice of the port and raises ``NotImplementedError`` here.
+    ``plan_cache`` (used only when ``catalog`` is given, since the cache
+    binds to a catalog fingerprint) short-circuits the whole pass on a
+    warm hit: the cache is synced to the catalog, keyed on the input
+    plan's signature + every rewrite knob, and a stored ``OptimizedPlan``
+    is returned as-is. Misses run the normal pass and store the result.
     """
-    if plan_cache is not None:
-        raise NotImplementedError("optimize(plan_cache=...) comes with the "
-                                  "service slice of the port")
     if schema is None:
         if catalog is None:
             raise ValueError("optimize() needs a catalog or an explicit "
@@ -774,6 +828,15 @@ def optimize(plan: Node, catalog: Optional[Catalog] = None, *,
         base_stats = catalog_base_stats(catalog) if catalog else {}
     if params is None:
         params = CostParams(p=catalog.p if catalog else 8, w=1.0)
+    cache_key = None
+    if plan_cache is not None and catalog is not None:
+        plan_cache.sync(catalog)
+        cache_key = PlanCache.key(plan, params, pushdown=pushdown,
+                                  prune=prune, reorder=reorder, bushy=bushy,
+                                  min_region=min_region)
+        cached = plan_cache.lookup(cache_key)
+        if cached is not None:
+            return cached
     original = plan
     if verify:
         # Imported here: plan_analysis is optimizer-independent, but
@@ -839,7 +902,10 @@ def optimize(plan: Node, catalog: Optional[Catalog] = None, *,
                       + analyze_plan(rewritten, schema))
         if violations:
             raise PlanVerificationError(violations)
-    return OptimizedPlan(rewritten, regions)
+    optimized = OptimizedPlan(rewritten, regions)
+    if cache_key is not None:
+        plan_cache.store(cache_key, optimized)
+    return optimized
 
 
 def build_region_plan_order(graph: JoinGraph) -> Node:

@@ -1,7 +1,8 @@
 """The port on an NVIDIA card: each CUDA kernel against its plain version,
 and the main path, the text-only and skew-target suites, the skew-aware
-path, the runtime-filter path and the reordering and hypercube path on the
-card against the same paths on the CPU.
+path, the runtime-filter path, the reordering and hypercube path, the
+query service and the nested-loop joins on the card against the same paths
+on the CPU.
 
 Every test here is marked ``cuda`` and skips without a card. The file
 imports neither JAX nor the JAX package, and uses no fixture of
@@ -603,3 +604,66 @@ def test_skew_aware_path_on_the_card_equals_the_cpu(cuda):
         assert rows_close(rows_as_set(got.table.to_numpy()),
                           rows_as_set(want.table.to_numpy())), name
     assert partition_hist.branch_launches["shared"] > shared
+
+
+def test_service_batch_on_the_card_equals_the_cpu(cuda):
+    """The service suite as one ``QueryService`` batch with every gate
+    armed: the card's shared subtrees, decisions, bytes and rows equal the
+    CPU's, and the service path's kernels launched."""
+    from repro_torch.sql import QueryService, generate, service_queries
+    reports, services = [], []
+    for dev in (None, "cpu"):
+        service = QueryService(generate(0.1, 4, 42, device=dev), verify=True)
+        for name, plan in service_queries().items():
+            service.submit(plan, name=name)
+        if dev is None:
+            ops.reset_launch_counts()
+        reports.append(service.run()[0])
+        services.append(service)
+        if dev is None:
+            counts = ops.launch_counts()
+    got, want = reports
+    assert [(s.sig, s.consumers) for s in got.shared] == \
+        [(s.sig, s.consumers) for s in want.shared]
+    assert got.total_network_bytes == want.total_network_bytes
+    for name, res in want.results.items():
+        assert got.results[name].methods() == res.methods(), name
+        assert rows_close(rows_as_set(got.results[name].table.to_numpy()),
+                          rows_as_set(res.table.to_numpy())), name
+    assert services[0].stats() == services[1].stats()
+    for kernel in ("partition_hist", "tiled_probe", "bloom_build",
+                   "bloom_probe", "key_range"):
+        assert counts[kernel] > 0, kernel
+
+
+@pytest.mark.parametrize("method", ["broadcast_nl", "cartesian"])
+def test_nested_loop_joins_on_the_card_equal_the_cpu(cuda, method):
+    """store_sales against date_dim (odd keys masked) under a nested-loop
+    method, in several chunks: the card's rows and report equal the CPU's
+    and the broadcast hash join's."""
+    from repro_torch.core.cost_model import JoinMethod
+    from repro_torch.joins import local_join, run_equi_join
+    from repro_torch.sql import generate
+    runs = {}
+    for dev in (None, "cpu"):
+        cat = generate(3, 8, 0, device=dev)
+        a, b = cat.table("store_sales"), cat.table("date_dim")
+        b = b.with_valid(b.valid & (b.column("d_date_sk") % 2 == 0))
+        assert a.valid.numel() > local_join.nl_chunk_rows(b.valid.numel())
+        for jt in ("inner", "left_semi", "left_anti", "left_outer"):
+            out, rep = run_equi_join(JoinMethod(method), a, b,
+                                     "ss_sold_date_sk", "d_date_sk", jt)
+            runs[(dev, jt)] = (rows_as_set(out.to_numpy()), rep)
+            if jt != "left_outer":
+                hash_out, _ = run_equi_join(JoinMethod.BROADCAST_HASH, a, b,
+                                            "ss_sold_date_sk", "d_date_sk",
+                                            jt)
+                assert runs[(dev, jt)][0] == \
+                    rows_as_set(hash_out.to_numpy()), (dev, jt)
+    for jt in ("inner", "left_semi", "left_anti", "left_outer"):
+        (got, grep), (want, wrep) = runs[(None, jt)], runs[("cpu", jt)]
+        assert got == want, jt
+        assert (grep.local_bytes, grep.output_rows) == \
+            (wrep.local_bytes, wrep.output_rows)
+        assert [e.network_bytes for e in grep.exchanges] == \
+            [e.network_bytes for e in wrep.exchanges]

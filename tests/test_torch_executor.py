@@ -142,9 +142,24 @@ def test_reorder_option_runs(port_catalog):
 
 
 def test_shared_intermediates_raise(port_catalog):
+    """Named for the guard ``intermediates`` had before the service
+    slice: an injected table now stands in for the Join or Aggregate whose
+    signature keys it (no join runs, no byte moves), and a key that
+    matches no node changes nothing."""
+    plan = all_queries()["q1_star3"]
+    base = Executor(port_catalog, RelJoinStrategy()).execute(plan)
+    inner = Executor(port_catalog, RelJoinStrategy()).execute(plan.child)
+    got = Executor(port_catalog, RelJoinStrategy(),
+                   intermediates={signature(plan.child): inner.table}
+                   ).execute(plan)
+    assert got.decisions == [] and got.network_bytes == 0.0
+    assert rows_close(rows_as_set(got.table.to_numpy()),
+                      rows_as_set(base.table.to_numpy()))
     t = port_catalog.tables["item"]
-    with pytest.raises(NotImplementedError):
-        Executor(port_catalog, RelJoinStrategy(), intermediates={"x": t})
+    other = Executor(port_catalog, RelJoinStrategy(),
+                     intermediates={"x": t}).execute(plan)
+    assert decisions(other) == decisions(base)
+    assert other.network_bytes == base.network_bytes
 
 
 def test_default_local_join_path_follows_the_device(port_catalog):

@@ -281,14 +281,11 @@ def test_run_equi_join_equal(method, join_type):
                                     JoinMethod.CARTESIAN,
                                     JoinMethod.SALTED_SHUFFLE_HASH])
 def test_later_slice_methods_raise(method):
-    """The nested-loop methods still wait for their slice. The salted
-    shuffle hash join (the skew slice) now runs through ``run_equi_join``
-    and equals the reference's, report and rows."""
+    """Named for the guards these methods had before their slices: the
+    salted shuffle hash join (the skew slice) and the nested-loop methods
+    (the nested-loop slice) now run through ``run_equi_join`` and equal
+    the reference's, report and rows."""
     a, b, (ja, ta), (jb, tb) = fact_dim(0)
-    if method is not JoinMethod.SALTED_SHUFFLE_HASH:
-        with pytest.raises(NotImplementedError):
-            methods.run_equi_join(method, ta, tb, "k", "k")
-        return
     jout, jrep = jmethods.run_equi_join(JJoinMethod(method.value), ja, jb,
                                         "k", "k")
     tout, trep = methods.run_equi_join(method, ta, tb, "k", "k")

@@ -38,8 +38,9 @@ from repro.sql.logical import extract_join_graph as j_extract_join_graph
 from repro.sql.logical import signature as j_signature
 from repro_torch.core.cost_model import CostParams
 from repro_torch.core.stats import StatsSource, TableStats
-from repro_torch.sql import (Executor, FilteredStrategy, RelJoinStrategy,
-                             ReorderingStrategy, all_queries, cyclic_queries,
+from repro_torch.sql import (Executor, FilteredStrategy, PlanCache,
+                             RelJoinStrategy, ReorderingStrategy, all_queries,
+                             cyclic_queries,
                              default_strategies, every_query,
                              filtered_queries, generate, misordered_queries,
                              optimize, signature, skewed_queries,
@@ -259,17 +260,22 @@ def test_enumerate_join_order_equals_reference(catalog, port_catalog, query,
 
 
 def test_optimize_later_slice_options_raise(catalog, port_catalog):
-    """``verify=True`` (the plan-verification slice) now runs and gives the
-    reference's plan and regions; ``plan_cache`` still waits for the
-    service slice."""
+    """Named for the guards these options had before their slices:
+    ``verify=True`` (the plan-verification slice) and ``plan_cache`` (the
+    service slice) now run and give the reference's plan and regions; a
+    second call is a hit that returns the stored plan."""
     plan = misordered_queries()["q13_fact_fact_first"]
     got = optimize(plan, port_catalog, verify=True)
     want = jp.optimize(j_misordered_queries()["q13_fact_fact_first"],
                        catalog, verify=True)
     assert signature(got.plan) == j_signature(want.plan)
     assert canon(got.regions) == canon(want.regions)
-    with pytest.raises(NotImplementedError):
-        optimize(plan, port_catalog, plan_cache=object())
+    cache = PlanCache()
+    cold = optimize(plan, port_catalog, plan_cache=cache)
+    assert signature(cold.plan) == j_signature(want.plan)
+    assert canon(cold.regions) == canon(want.regions)
+    assert optimize(plan, port_catalog, plan_cache=cache) is cold
+    assert (cache.hits, cache.misses, len(cache)) == (1, 1, 1)
 
 
 # ---------------------------------------------------------------------------
