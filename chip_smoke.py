@@ -103,6 +103,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    store_sales against store and date_dim (their odd keys masked) under
    ``BROADCAST_NL`` and ``CARTESIAN`` (rows equal ``BROADCAST_HASH``'s for
    inner, left_semi and left_anti; wall time and chunk count of each);
+5f. the distributed twins of ``repro_torch.joins.distributed`` on phase 4's
+   catalog, every rank's partition on the one card: the global view of
+   each twin first (its rows, sorted on the card, its payloads, and its
+   walls), then 8 rank processes under gloo (NCCL refuses two ranks on one
+   card) and one under NCCL on the concatenated tables, each running
+   store_sales x customer under the shuffle hash and shuffle sort twins,
+   store_sales x date_dim and x store under the broadcast hash twin, q35's
+   three cube inputs under the hypercube twin (``Reorder(RelJoin)``'s spec,
+   at the global view's first factor without overflow), and the bloom,
+   zone-map and key-set builds on q19's filtered customer keys and on
+   ``ss_customer_sk``; a warm-up pass, then with each rank's launch counts
+   set to 0, three timed runs of each twin: rows (gathered to rank 0 and
+   sorted on the card) equal the global view's, payloads bit-identical on
+   every rank, no row past a pair's capacity, K2, K4 and K6 launched on
+   every rank (K3's count printed); the slowest rank's wall, the bytes
+   each rank sent by collective, and the global view's wall;
 6. cross-checks: the decisions at ``generate(0.1, 4, 42)`` of q1-q37 under
    the four default strategies and of q13-q15 and q35-q37 under
    ``Reorder(RelJoin)`` (154), and ``optimize``'s reordering and plan
@@ -2494,6 +2510,395 @@ def measure_probe3(calls: dict, launches: dict) -> list:
 
 
 # ---------------------------------------------------------------------------
+# Phase 5f: the distributed twins
+# ---------------------------------------------------------------------------
+
+#: The kernels every rank of the twins must launch (K3 only where a sort
+#: join's receive width is a power of two up to 4096).
+TWIN_KERNELS = ("tiled_probe", "bloom_build", "key_range")
+#: Timed runs of each twin and of its global-view method.
+TWIN_REPS = 3
+#: The binary twins: (name, twin, global-view method, probe table, build
+#: table, probe key, build key).
+BINARY_TWINS = (
+    ("shuffle_hash store_sales x customer", "dist_shuffle_hash_join",
+     "shuffle_hash_join", "store_sales", "customer", "ss_customer_sk",
+     "c_customer_sk"),
+    ("shuffle_sort store_sales x customer", "dist_shuffle_sort_join",
+     "shuffle_sort_join", "store_sales", "customer", "ss_customer_sk",
+     "c_customer_sk"),
+    ("broadcast_hash store_sales x date_dim", "dist_broadcast_hash_join",
+     "broadcast_hash_join", "store_sales", "date_dim", "ss_sold_date_sk",
+     "d_date_sk"),
+    ("broadcast_hash store_sales x store", "dist_broadcast_hash_join",
+     "broadcast_hash_join", "store_sales", "store", "ss_store_sk",
+     "s_store_sk"))
+CUBE_TWIN = "hypercube q35"
+
+
+def stack1(table):
+    """A stacked table as one partition, (1, p * cap)."""
+    from repro_torch.joins import Table
+    return Table({n: c.reshape(1, -1) for n, c in table.columns.items()},
+                 table.valid.reshape(1, -1))
+
+
+def q35_cube_inputs(catalog):
+    """q35's three cube inputs and spec as ``Reorder(RelJoin)`` plans them
+    at the catalog's p, and the least capacity factor (2, 4, 8, ...) at
+    which the global view's exchange overflows nowhere, as the executor's
+    retry loop finds it."""
+    from repro_torch.joins import hypercube_multiway_join
+    from repro_torch.sql import (Executor, RelJoinStrategy,
+                                 ReorderingStrategy, cyclic_queries)
+
+    seen = []
+
+    class Capture(Executor):
+        def _run_hypercube_with_retry(self, tables, spec):
+            seen.append((tables, spec))
+            return super()._run_hypercube_with_retry(tables, spec)
+
+    Capture(catalog, ReorderingStrategy(RelJoinStrategy())).execute(
+        cyclic_queries()["q35_triangle"])
+    require(len(seen) == 1, f"q35 ran {len(seen)} cubes")
+    tables, spec = seen[0]
+    factor = 2.0
+    while True:
+        _, rep = hypercube_multiway_join(list(tables), spec,
+                                         capacity_factor=factor,
+                                         use_kernel=True)
+        if all(e.overflow_rows == 0 for e in rep.exchanges):
+            return tables, spec, factor
+        factor *= 2
+        require(factor <= 64, "q35's cube overflows at every factor")
+
+
+def twin_filter_columns(catalog):
+    """(name, (keys, valid) table, m_bits, k) of the filter builds: q19's
+    filtered customer keys (c_income < 74000) and every store_sales
+    customer key."""
+    from repro_torch.core.cost_model import bloom_params
+    from repro_torch.core.psts import distinct_count
+    from repro_torch.joins import Table
+
+    cust, ss = catalog.table("customer"), catalog.table("store_sales")
+    out = []
+    for name, t, key, valid in (
+            ("customer c_income < 74000", cust, "c_customer_sk",
+             cust.valid & (cust.column("c_income") < 74000)),
+            ("store_sales ss_customer_sk", ss, "ss_customer_sk", ss.valid)):
+        m, k = bloom_params(distinct_count(t.column(key), valid))
+        out.append((name, Table({"k": t.column(key)}, valid), m, k))
+    return out
+
+
+def twin_inputs(catalog) -> dict:
+    """What every rank of a run at world p receives: the stacked tables,
+    q35's cube with its spec and factor, and the filter columns."""
+    names = {t for case in BINARY_TWINS for t in case[3:5]}
+    return {"tables": {n: catalog.table(n) for n in names},
+            "cube": q35_cube_inputs(catalog),
+            "filters": twin_filter_columns(catalog)}
+
+
+def one_partition(inputs: dict) -> dict:
+    """``twin_inputs`` for a run at world 1: every table as one partition,
+    the cube's dims all 1."""
+    import dataclasses
+
+    cube, spec, factor = inputs["cube"]
+    return {"tables": {n: stack1(t) for n, t in inputs["tables"].items()},
+            "cube": (tuple(stack1(t) for t in cube),
+                     dataclasses.replace(spec, dims=(1,) * len(spec.dims)),
+                     factor),
+            "filters": [(n, stack1(t), m, k)
+                        for n, t, m, k in inputs["filters"]]}
+
+
+def row_matrix(table, names):
+    """The valid rows of ``table``'s columns ``names`` as an (n, C) int32
+    matrix of their bit patterns (float32 and bool as int32)."""
+    import torch
+    v = table.valid.reshape(-1)
+    cols = []
+    for n in names:
+        c = table.columns[n].reshape(-1)[v]
+        cols.append(c.view(torch.int32) if c.dtype == torch.float32
+                    else c.to(torch.int32))
+    return torch.stack(cols, 1)
+
+
+def sorted_rows(mat):
+    """Rows of an int32 matrix in lexicographic order, on its device: a
+    stable sort by each column, last column first."""
+    import torch
+    order = torch.arange(mat.shape[0], device=mat.device)
+    for j in reversed(range(mat.shape[1])):
+        order = order[torch.argsort(mat[order, j], stable=True)]
+    return mat[order]
+
+
+def global_twin_results(inputs: dict, reps: int) -> tuple:
+    """The global-view method of every twin on the stacked tables of
+    ``inputs`` (the kernel path), timed: name -> ("rows", column names,
+    sorted row matrix) or ("payload", tensors), and name -> walls."""
+    import torch
+
+    from repro_torch.core.psts import key_set
+    from repro_torch.joins import methods
+    from repro_torch.kernels.bloom import bloom_build
+    from repro_torch.kernels.zone_map import key_range
+
+    tabs = inputs["tables"]
+    cube, spec, factor = inputs["cube"]
+    calls = {}
+    for name, _, method, a, b, ak, bk in BINARY_TWINS:
+        calls[name] = (lambda m=method, a=a, b=b, ak=ak, bk=bk:
+                       getattr(methods, m)(tabs[a], tabs[b], ak, bk,
+                                           use_kernel=True)[0])
+    calls[CUBE_TWIN] = lambda: methods.hypercube_multiway_join(
+        list(cube), spec, capacity_factor=factor, use_kernel=True)[0]
+    for name, t, m, k in inputs["filters"]:
+        calls[f"bloom {name}"] = (lambda t=t, m=m, k=k: (bloom_build(
+            t.column("k"), t.valid, m_bits=m, k=k),))
+        calls[f"zone_map {name}"] = (lambda t=t: (key_range(t.column("k"),
+                                                            t.valid),))
+        calls[f"key_set {name}"] = (lambda t=t: key_set(t.column("k"),
+                                                        t.valid))
+    expected, walls = {}, {}
+    for name, fn in calls.items():
+        out = fn()  # warm-up
+        walls[name] = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - t0)
+        if isinstance(out, tuple):
+            expected[name] = ("payload", out)
+        else:
+            names = sorted(out.columns)
+            expected[name] = ("rows", names,
+                              sorted_rows(row_matrix(out, names)))
+    return expected, walls
+
+
+def rows_to_rank0(mat, world: int):
+    """Every rank's (n_r, C) row matrix on rank 0, concatenated (other
+    ranks get an empty matrix): one uneven ``all_to_all_single``, after an
+    all-gather of the row counts. Outside the twins: it checks them."""
+    import torch
+    import torch.distributed as dist
+
+    n = torch.tensor([mat.shape[0]], device=mat.device)
+    counts = [torch.empty_like(n) for _ in range(world)]
+    dist.all_gather(counts, n)
+    width, first = mat.shape[1], dist.get_rank() == 0
+    send = mat.reshape(-1).contiguous()
+    into = [send.numel() if r == 0 else 0 for r in range(world)]
+    outof = [int(c) * width if first else 0 for c in counts]
+    recv = torch.empty(sum(outof), dtype=send.dtype, device=send.device)
+    dist.all_to_all_single(recv, send, outof, into)
+    return recv.reshape(-1, width)
+
+
+def twin_cases(inputs: dict, mesh, cube_mesh) -> dict:
+    """name -> (mesh, call) of every twin on this rank's partitions."""
+    from repro_torch.joins import distributed as td
+
+    t = {n: td.place(tab, mesh) for n, tab in inputs["tables"].items()}
+    cube, spec, factor = inputs["cube"]
+    ctabs = tuple(td.place_cube(tab, cube_mesh) for tab in cube)
+    cases = {}
+    for name, twin, _, a, b, ak, bk in BINARY_TWINS:
+        cases[name] = (mesh, lambda f=getattr(td, twin), a=a, b=b, ak=ak,
+                       bk=bk: f(t[a], t[b], ak, bk, mesh))
+    cases[CUBE_TWIN] = (cube_mesh, lambda: td.dist_hypercube_join(
+        ctabs, spec, cube_mesh, capacity_factor=factor))
+    for name, tab, m, k in inputs["filters"]:
+        local = td.place(tab, mesh)
+        cases[f"bloom {name}"] = (mesh, lambda x=local, m=m, k=k:
+                                  td.dist_bloom_build(x, "k", mesh,
+                                                      m_bits=m, k=k))
+        cases[f"zone_map {name}"] = (mesh, lambda x=local:
+                                     td.dist_zone_map_build(x, "k", mesh))
+        cases[f"key_set {name}"] = (mesh, lambda x=local:
+                                    td.dist_key_set_build(x, "k", mesh))
+    return cases
+
+
+def run_twins_on_rank(world: int, dev, inputs: dict, expected: dict,
+                      reps: int) -> dict:
+    """Every twin on this rank: a warm-up pass, then with the launch
+    counts set to 0 the reported pass, ``reps`` runs of each twin, each
+    from a barrier to a synchronize after its result; its result checked
+    against the global view's (rows gathered and sorted on rank 0, payloads
+    on every rank). Returns this rank's walls, bytes sent by collective,
+    dropped rows and launch counts."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.joins import distributed as td
+    from repro_torch.kernels import build, ops
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    if dev.type == "cuda":
+        build.library()  # the parent's build, found in build/
+    mesh = td.make_join_mesh(world, device=dev)
+    cube_mesh = td.make_cube_mesh(inputs["cube"][1].dims, device=dev)
+    cases = twin_cases(inputs, mesh, cube_mesh)
+    for _, call in cases.values():  # first calls of every op, not reported
+        call()
+    sync()
+    ops.reset_launch_counts()
+    report = {}
+    for name, (m, call) in cases.items():
+        walls, before = [], ops.launch_counts()
+        for _ in range(reps):
+            m.stats.reset()
+            dist.barrier()
+            sync()
+            t0 = time.perf_counter()
+            out = call()
+            sync()
+            walls.append(time.perf_counter() - t0)
+        after = ops.launch_counts()
+        cell = {"walls": walls, "sent": dict(m.stats.sent_bytes),
+                "dropped": int(m.stats.dropped_rows),
+                "launches": {k: (after[k] - before[k]) // reps
+                             for k in after if after[k] > before[k]}}
+        want = expected[name]
+        if want[0] == "rows":
+            _, names, rows = want
+            require(sorted(out.columns) == names,
+                    f"{name}: columns {sorted(out.columns)}, not {names}")
+            got = rows_to_rank0(row_matrix(out, names), world)
+            if dist.get_rank() == 0:
+                require(torch.equal(sorted_rows(got), rows),
+                        f"{name}: {got.shape[0]} rows differ from the "
+                        f"global view's {rows.shape[0]}")
+            cell["rows"] = int(got.shape[0])
+        else:
+            outs = out if isinstance(out, tuple) else (out,)
+            require(all(torch.equal(g, w) for g, w in zip(outs, want[1],
+                                                          strict=True)),
+                    f"{name}: payload differs from the global build")
+        report[name] = cell
+    report["launches"] = ops.launch_counts()
+    return report
+
+
+def twins_rank(rank: int, world: int, backend: str, store: str,
+               out_dir: str, device: str, inputs: dict, expected: dict,
+               reps: int) -> None:
+    """One rank process of ``run_twins``: joins the ``backend`` group
+    through a ``FileStore``, runs every twin and writes its report."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    dev = torch.device(device)
+    extra = {"device_id": dev} if backend == "nccl" else {}
+    dist.init_process_group(backend, store=dist.FileStore(store, world),
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=300), **extra)
+    try:
+        report = run_twins_on_rank(world, dev, inputs, expected, reps)
+        (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(report))
+    finally:
+        dist.destroy_process_group()
+        # A spawned process ends without collecting its objects: release
+        # the parent's shared tensors now, so that it may free them.
+        inputs.clear()
+        expected.clear()
+
+
+def run_twins(inputs: dict, expected: dict, world: int, backend: str,
+              device: str = "cuda:0", reps: int = TWIN_REPS) -> list:
+    """``world`` rank processes (``torch.multiprocessing``, spawn) running
+    every twin under ``backend``; a rank's exception fails the call.
+    Returns every rank's report."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.start_processes(twins_rank, nprocs=world, start_method="spawn",
+                           args=(world, backend, str(Path(tmp) / "store"),
+                                 tmp, device, inputs, expected, reps))
+        return [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+                for r in range(world)]
+
+
+def check_twin_reports(reports: list, label: str) -> None:
+    """Fail unless every rank launched K2, K4 and K6 and no twin dropped a
+    row; print each twin's slowest-rank walls, bytes by collective per
+    rank, rows and launches."""
+    for r, rep in enumerate(reports):
+        for name in TWIN_KERNELS:
+            require(rep["launches"][name] > 0,
+                    f"{label}: {name} never launched on rank {r}")
+    for name in reports[0]:
+        if name == "launches":
+            continue
+        cells = [rep[name] for rep in reports]
+        dropped = sum(c["dropped"] for c in cells)
+        require(dropped == 0, f"{label} {name}: {dropped} rows past a "
+                "pair's capacity")
+        walls = [max(c["walls"][i] for c in cells)
+                 for i in range(len(cells[0]["walls"]))]
+        sent = {k: [c["sent"][k] for c in cells] for k in cells[0]["sent"]}
+        rows = f" rows={cells[0]['rows']}" if "rows" in cells[0] else ""
+        print(f"  {label} {name}:{rows} wall (slowest rank) "
+              + ", ".join(f"{w * 1e3:.2f}" for w in walls)
+              + f" ms; launches/rank {cells[0]['launches']}; bytes sent "
+              + "; ".join(f"{k} {v}" for k, v in sent.items() if any(v)))
+    print(f"  {label} launches by rank: "
+          + " | ".join(",".join(f"{k}={v}" for k, v in rep["launches"].items()
+                                if v) for rep in reports)
+          + f"; bitonic_sort_tile {[r['launches']['bitonic_sort_tile'] for r in reports]}"
+          " (not required)")
+
+
+def run_twins_path(catalog, smi: str) -> None:
+    """Phase 5f. The global view of every twin on the catalog (the
+    expected rows and payloads, and its walls), then the twins at world p
+    (gloo: NCCL refuses two ranks on one card) and at world 1 (NCCL) on the
+    same card."""
+    t0 = time.perf_counter()
+    inputs = {catalog.p: twin_inputs(catalog)}
+    inputs[1] = one_partition(inputs[catalog.p])
+    cube, spec, factor = inputs[catalog.p]["cube"]
+    print(f"  q35 cube: dims {spec.dims}, axis keys {spec.axis_keys}, "
+          f"factor {factor} (the global view's first without overflow); "
+          f"inputs {[t.count() for t in cube]} rows")
+    for name, t, m, k in inputs[catalog.p]["filters"]:
+        print(f"  filter column {name}: {t.valid.numel()} keys, "
+              f"{t.count()} valid, m_bits {m}, k {k}")
+    expected, walls = global_twin_results(inputs[catalog.p], TWIN_REPS)
+    print(f"  global view ({smi}; set-up {time.perf_counter() - t0:.1f} s):")
+    for name, w in walls.items():
+        rows = (f" rows={expected[name][2].shape[0]}"
+                if expected[name][0] == "rows" else "")
+        print(f"    {name}:{rows} wall "
+              + ", ".join(f"{x * 1e3:.2f}" for x in w) + " ms")
+    for world, backend in ((catalog.p, "gloo"), (1, "nccl")):
+        t1 = time.perf_counter()
+        reports = run_twins(inputs[world], expected, world, backend)
+        print(f"  world {world} under {backend}, every rank on the one card "
+              f"({smi}): {time.perf_counter() - t1:.1f} s, spawn and "
+              "warm-up included; rows equal the global view, payloads "
+              "bit-identical")
+        check_twin_reports(reports, f"world {world}")
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: cross-checks
 # ---------------------------------------------------------------------------
 
@@ -2720,6 +3125,9 @@ def main() -> int:
 
     with phase("5e. the query service and the nested-loop joins"):
         run_service_path(catalog)
+
+    with phase("5f. the distributed twins"):
+        run_twins_path(catalog, smi)
         del catalog
 
     with phase("6. cross-checks"):

@@ -2,7 +2,8 @@
 and the main path, the text-only and skew-target suites, the skew-aware
 path, the runtime-filter path, the reordering and hypercube path, the
 query service and the nested-loop joins on the card against the same paths
-on the CPU.
+on the CPU, and the distributed twins on the card (4 ranks under gloo, 1
+under NCCL) against the global view.
 
 Every test here is marked ``cuda`` and skips without a card. The file
 imports neither JAX nor the JAX package, and uses no fixture of
@@ -12,6 +13,7 @@ imports neither JAX nor the JAX package, and uses no fixture of
 """
 
 import importlib.util
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -667,3 +669,31 @@ def test_nested_loop_joins_on_the_card_equal_the_cpu(cuda, method):
             (wrep.local_bytes, wrep.output_rows)
         assert [e.network_bytes for e in grep.exchanges] == \
             [e.network_bytes for e in wrep.exchanges]
+
+
+def _chip_smoke_by_name():
+    """``chip_smoke.py`` imported under its own name, so that the rank
+    processes it spawns can import its rank function."""
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+    return chip_smoke
+
+
+@pytest.mark.parametrize("world,backend", [(4, "gloo"), (1, "nccl")])
+def test_distributed_twins_on_the_card_equal_the_global_view(cuda, world,
+                                                             backend):
+    """Every twin of ``chip_smoke.py`` phase 5f at ``generate(0.3, 4, 0)``,
+    every rank on the one card: rows equal the global view's at p = 4,
+    payloads bit-identical, no row past a pair's capacity, and K2, K4 and
+    K6 launched in every rank (``check_twin_reports`` raises otherwise)."""
+    from repro_torch.sql import generate
+    cs = _chip_smoke_by_name()
+    inputs = cs.twin_inputs(generate(0.3, 4, 0))
+    expected, _ = cs.global_twin_results(inputs, reps=1)
+    if world == 1:
+        inputs = cs.one_partition(inputs)
+    reports = cs.run_twins(inputs, expected, world, backend, reps=1)
+    assert len(reports) == world
+    cs.check_twin_reports(reports, f"world {world} under {backend}")
