@@ -129,7 +129,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``repro_torch.sql.plan_analysis.main`` (37 plans x 9 strategies with
    every gate armed, at ``generate(0.05, 4, 42)``) reports no violation;
    and ``repro_torch.sql.service.main`` (the service suite batched against
-   its solo runs at ``generate(0.05, 4, 11)``) returns 0.
+   its solo runs at ``generate(0.05, 4, 11)``) returns 0;
+7. LM serving (``repro_torch.models.lm`` and ``repro_torch.serving``), with
+   every launch count set to 0 just before and required to stay 0 (the
+   path runs none of K1-K7): the six smoke configs of the uniform-block
+   families (forward finite on the card; hidden states, prefill logits and
+   every decode step's logits equal to the port's CPU run on the same
+   params; teacher-forced decode reproduces forward); then tinyllama-1.1b
+   and granite-8b at full width from random weights: a ``ServeEngine`` of 8
+   slots drains 16 requests of 8 + 32 tokens (tinyllama, 256 positions) or
+   8 of 16 + 16 (granite, 128 positions), with completion, occupancy, FIFO
+   admission and the vocab checked; four requests chosen in advance held
+   against forward over their own tokens; teacher-forced decode against
+   forward at B = 2, S = 64; and the readings: the decode step at batch 8
+   (fp32 weights cast at every use, and the engine's resident bf16 copy),
+   tokens/s while draining, one prefill at B = 8, S = 512, and the peak
+   memory, each beside its bound.
 
 With ``--save-inputs PATH`` it saves the inputs at which it timed the
 bitonic sort, the bloom build and key_range, for
@@ -1114,6 +1129,16 @@ WATCHED = {"partition_hist": ("hist_registers", "hist_bins"),
            "key_range": ("key_range", "empty_range")}
 
 
+def union_us(spans) -> float:
+    """Length of the union of (start, stop) intervals."""
+    busy, end = 0.0, float("-inf")
+    for start, stop in sorted(spans):
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    return busy
+
+
 def profile_pass(run_all) -> None:
     """One more pass over the main path under ``torch.profiler``: the
     device's busy and idle share of the pass's wall time, the kernels that
@@ -1140,11 +1165,7 @@ def profile_pass(run_all) -> None:
         print("  profile: the profiler recorded no device time "
               "(device busy share not measured)")
         return
-    busy, end = 0.0, float("-inf")
-    for start, stop in sorted(spans):  # union of the device intervals
-        if stop > end:
-            busy += stop - max(start, end)
-            end = stop
+    busy = union_us(spans)
     total = sum(us for _, us in by_name.values())
     print(f"  profile pass: wall {wall_us / 1e3:.1f} ms (profiler on), "
           f"device busy {busy / 1e3:.1f} ms, idle share "
@@ -2996,6 +3017,359 @@ def check_gather_path(dev) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phase 7: LM serving
+# ---------------------------------------------------------------------------
+
+#: The H100 SXM's dense bf16 tensor-core peak (NVIDIA data sheet), the rate
+#: every prefill bound is counted at.
+PEAK_BF16_FLOPS_PER_S = 989e12
+LM_MESH = (("data", 1), ("model", 1))
+LM_SMOKE_ARCHS = ("musicgen_large", "granite_8b", "tinyllama_1_1b",
+                  "starcoder2_3b", "glm4_9b", "paligemma_3b")
+#: Teacher-forced decode against forward: the reference's tolerance
+#: (tests/test_models.py).
+DECODE_RTOL, DECODE_ATOL = 0.2, 0.25
+#: The card against the port's CPU run on the same params, as the CPU
+#: tests hold the port to the JAX package: bf16 rounded at other points and
+#: products summed in other orders, a few bf16 steps (2^-8) over a model.
+CARD_RTOL, CARD_ATOL, CARD_MEAN_ATOL = 2 ** -5, 2 ** -4, 2 ** -6
+#: How far below forward's largest logit an emitted token's may lie: the
+#: reference's decode-vs-forward atol. Where forward's top-2 margin is
+#: larger, the token must be forward's argmax.
+TOKEN_GAP = 0.25
+
+
+def lm_close(port, ref, what: str, rtol: float, atol: float,
+             mean_atol: float | None = None) -> float:
+    """Require ``port`` within ``atol + rtol * |ref|`` of ``ref`` (and, if
+    given, a mean absolute difference of at most ``mean_atol``); return the
+    largest absolute difference."""
+    a, b = port.float().cpu(), ref.float().cpu()
+    require(a.shape == b.shape, f"{what}: shapes {a.shape} and {b.shape}")
+    err = (a - b).abs()
+    require(bool((err <= atol + rtol * b.abs()).all()),
+            f"{what}: largest difference {float(err.max()):.4f} outside "
+            f"rtol {rtol}, atol {atol}")
+    if mean_atol is not None:
+        require(float(err.mean()) <= mean_atol,
+                f"{what}: mean difference {float(err.mean()):.5f} above "
+                f"{mean_atol}")
+    return float(err.max())
+
+
+def synchronize(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def all_position_logits(params, cfg, plan, tokens):
+    """forward's logits (B, S, vocab) at every position."""
+    from repro_torch.layers import embedding as emb
+    from repro_torch.models import lm
+    hidden, _ = lm.forward(params, cfg, plan, None, tokens)
+    head = params["embed"] if cfg.tie_embeddings else params["head"]
+    return emb.lm_head_logits(head, hidden, mesh=None, batch_axes=(),
+                              model_axis="model", strategy="replicate")
+
+
+def teacher_forced_decode(params, cfg, plan, tokens):
+    """decode_step's logits (B, S, vocab), fed ``tokens`` one position at
+    a time from an empty cache of S positions."""
+    import torch
+    from repro_torch.models import lm
+    B, S = tokens.shape
+    cache = lm.init_cache(cfg, B, S, device=tokens.device)
+    outs = []
+    for t in range(S):
+        logits, cache = lm.decode_step(params, cfg, plan, None,
+                                       tokens[:, t:t + 1], cache)
+        outs.append(logits)
+    return torch.stack(outs, dim=1)
+
+
+def check_lm_smoke(dev) -> None:
+    """Phase 7a. Each smoke config on the card: forward finite; the card's
+    hidden states, prefill logits and decode logits against the port's CPU
+    run on the same params; teacher-forced decode against forward."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.relshard import plan_model
+    from repro_torch.models import lm
+    from repro_torch.models.config import SHAPE_BY_NAME
+    cpu = torch.device("cpu")
+    for i, arch in enumerate(LM_SMOKE_ARCHS):
+        cfg = get_smoke_config(arch)
+        plan = plan_model(cfg, LM_MESH, SHAPE_BY_NAME["train_4k"],
+                          fsdp=False)
+        host = lm.init_params(cfg, seed=i, device=cpu)
+        params = lm.params_from_numpy(lm.params_to_numpy(host), dev)
+        rng = np.random.default_rng(i)
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 64)))
+        cond = None
+        if cfg.n_cond_tokens:
+            cond = torch.from_numpy(0.01 * rng.standard_normal(
+                (2, cfg.n_cond_tokens, cfg.d_model))).to(torch.bfloat16)
+        on = (lambda x: None if x is None else x.to(dev))  # noqa: E731
+        hidden, _ = lm.forward(params, cfg, plan, None, on(tokens), on(cond))
+        require(bool(torch.isfinite(hidden.float()).all()),
+                f"{arch}: forward is not finite on the card")
+        h_err = lm_close(hidden, lm.forward(host, cfg, plan, None, tokens,
+                                            cond)[0],
+                         f"{arch} hidden, card vs CPU", CARD_RTOL, CARD_ATOL,
+                         CARD_MEAN_ATOL)
+        p_err = lm_close(lm.prefill(params, cfg, plan, None, on(tokens),
+                                    on(cond)),
+                         lm.prefill(host, cfg, plan, None, tokens, cond),
+                         f"{arch} prefill logits, card vs CPU", CARD_RTOL,
+                         CARD_ATOL, CARD_MEAN_ATOL)
+        c0 = dataclasses.replace(cfg, n_cond_tokens=0)
+        dec = teacher_forced_decode(params, c0, plan, on(tokens[:, :16]))
+        f_err = lm_close(dec, all_position_logits(params, c0, plan,
+                                                  on(tokens[:, :16])),
+                         f"{arch} decode vs forward on the card",
+                         DECODE_RTOL, DECODE_ATOL)
+        d_err = lm_close(dec, teacher_forced_decode(host, c0, plan,
+                                                    tokens[:, :16]),
+                         f"{arch} decode logits, card vs CPU", CARD_RTOL,
+                         CARD_ATOL, CARD_MEAN_ATOL)
+        print(f"  smoke {arch}: forward finite; largest difference card vs "
+              f"CPU: hidden {h_err:.4f}, prefill logits {p_err:.4f}, decode "
+              f"logits {d_err:.4f}; decode vs forward {f_err:.4f}")
+
+
+def tree_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from tree_leaves(v)
+    else:
+        yield tree
+
+
+#: Steps under the profiler in ``step_readings``: its post-processing takes
+#: about a millisecond of host time a device activity.
+PROFILED_STEPS = 2
+
+
+def step_readings(fn, reps: int) -> dict:
+    """A step of many launches: ``ms`` by CUDA events around ``reps`` back
+    to back (the host's pace where it is slower than the card), then, over
+    ``PROFILED_STEPS`` more under ``torch.profiler``, the device's busy time
+    a step (the union of its activities), its idle share of that pass's
+    wall, its activities a step and its device time by op. (``device_ms``
+    cannot time such a step: the launch queue fills behind its sleep
+    kernel.)"""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    out = dict(ms=cuda_ms(fn, reps))
+    reps = PROFILED_STEPS
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    require(bool(spans), "the profiler recorded no device time")
+    busy = union_us(spans)
+    ops = sorted((e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CPU
+                  and e.self_device_time_total > 0),
+                 key=lambda e: -e.self_device_time_total)[:5]
+    out.update(busy_ms=busy / reps / 1e3, idle=1 - busy / wall_us,
+               activities=len(spans) / reps,
+               top=", ".join(f"{e.key} "
+                             f"{e.self_device_time_total / reps / 1e3:.3f}"
+                             for e in ops))
+    return out
+
+
+def lm_weight_bytes(weights, batch: int) -> int:
+    """Bytes of the weights one decode step reads: every block, the final
+    norm and the head, and one embedding row a sequence."""
+    return sum((batch * t.shape[-1] if name == "embed" else t.numel())
+               * t.element_size()
+               for name, tree in weights.items() for t in tree_leaves(tree))
+
+
+def prefill_flops(cfg, batch: int, seq: int) -> float:
+    """Operations a prefill of (batch, seq) needs: the blocks' weight
+    products over every token, the attention scores and their products over
+    the causal half, and the head at the last position."""
+    head = cfg.vocab * cfg.d_model
+    blocks = cfg.param_count() - head * (1 if cfg.tie_embeddings else 2)
+    attention = 2 * 2 * cfg.n_layers * cfg.n_heads * cfg.hd * seq * (
+        seq + 1) / 2
+    return 2.0 * blocks * batch * seq + batch * attention + 2.0 * head * batch
+
+
+def serve_full_width(cfg, dev, smi: str, max_seq: int, n_requests: int,
+                     prompt_len: int, new_tokens: int) -> None:
+    """Phase 7b/7c. One model at its full width on the card: a ServeEngine
+    of 8 slots drains ``n_requests`` requests; FIFO admission, occupancy,
+    completion and the vocab are checked; four requests chosen in advance
+    are held against forward over their own tokens; teacher-forced decode
+    reproduces forward at B = 2, S = 64; the decode step (with the fp32
+    weights cast at every use, and from the engine's resident bf16 copy),
+    the drain and one prefill are timed beside their bounds."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.relshard import plan_model
+    from repro_torch.models import lm
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.serving.engine import Request, ServeEngine
+    cuda = dev.type == "cuda"
+    batch = 8
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=0, device=dev)
+    plan = plan_model(cfg, LM_MESH, ShapeConfig("serve", max_seq, batch,
+                                                "decode"), fsdp=False)
+    eng = ServeEngine(cfg, plan, None, params, max_batch=batch,
+                      max_seq=max_seq, device=dev)
+    synchronize(dev)
+    print(f"  {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.kv_heads} heads, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab}; {cfg.param_count() / 1e9:.2f} B params (analytic); "
+          f"fp32 params and the engine's bf16 copy built in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    rng = np.random.default_rng(7)
+    tok8 = torch.from_numpy(rng.integers(0, cfg.vocab, (batch, 1))).to(dev)
+    step_bytes = lm_weight_bytes(eng.weights, batch)
+    fp32_bytes = lm_weight_bytes(params, batch)
+
+    def decode_timer(weights):
+        cache = lm.init_cache(cfg, batch, max_seq, device=dev)
+        cache["pos"].fill_(max_seq // 2)
+        return lambda: lm.decode_step(weights, cfg, plan, None, tok8, cache)
+
+    fp32_step = step_readings(decode_timer(params), reps=5)
+    del params
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    reqs = [Request(i, rng.integers(0, cfg.vocab, prompt_len).tolist(),
+                    new_tokens) for i in range(n_requests)]
+    rids = [r.rid for r in reqs]
+    for r in reqs:
+        eng.submit(r)
+    max_occ, steps = 0, 0
+    t1 = time.perf_counter()
+    while eng.queue or eng.occupancy():
+        eng.step()
+        steps += 1
+        max_occ = max(max_occ, eng.occupancy())
+        waiting = [r.rid for r in eng.queue]
+        require(waiting == rids[len(rids) - len(waiting):],
+                f"{cfg.name}: admission is not FIFO")
+        require(steps < 10_000, f"{cfg.name}: the engine does not drain")
+    synchronize(dev)
+    drain_s = time.perf_counter() - t1
+    require(all(r.done and len(r.out) == new_tokens for r in reqs),
+            f"{cfg.name}: a request did not complete")
+    require(max_occ <= batch, f"{cfg.name}: occupancy {max_occ} > {batch}")
+    require(all(0 <= t < cfg.vocab for r in reqs for t in r.out),
+            f"{cfg.name}: a token outside the vocab")
+    print(f"  {cfg.name}: {n_requests} requests of {prompt_len} prompt "
+          f"tokens and {new_tokens} new drained in {steps} steps, "
+          f"{drain_s * 1e3:.1f} ms (admission's per-slot prefill included): "
+          f"{n_requests * new_tokens / drain_s:.1f} tokens/s; occupancy at "
+          f"most {max_occ}, admission FIFO, every token in the vocab")
+
+    picks = (0, n_requests // 3, 2 * n_requests // 3, n_requests - 1)
+    for rid in picks:
+        r = reqs[rid]
+        seq = torch.tensor([r.prompt + r.out[:-1]], device=dev)
+        logits = all_position_logits(eng.weights, cfg, plan, seq)[
+            0, prompt_len - 1:]
+        out = torch.tensor(r.out, device=dev)
+        gap = logits.max(dim=-1).values - logits.gather(1, out[:, None])[:, 0]
+        top2 = logits.topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > TOKEN_GAP
+        require(float(gap.max()) <= TOKEN_GAP,
+                f"{cfg.name} request {rid}: a token {float(gap.max()):.3f} "
+                f"below forward's largest logit")
+        require(bool((logits.argmax(dim=-1) == out)[clear].all()),
+                f"{cfg.name} request {rid}: a token is not forward's argmax")
+        print(f"    request {rid} against forward over its own tokens: "
+              f"{int(clear.sum())} of {new_tokens} tokens forward's argmax "
+              f"by a margin above {TOKEN_GAP}, the rest within it; largest "
+              f"gap {float(gap.max()):.4f}")
+
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 64))).to(dev)
+    err = lm_close(teacher_forced_decode(eng.weights, cfg, plan, tokens),
+                   all_position_logits(eng.weights, cfg, plan, tokens),
+                   f"{cfg.name} decode vs forward", DECODE_RTOL, DECODE_ATOL)
+    print(f"    teacher-forced decode vs forward, B = 2, S = 64: largest "
+          f"difference {err:.4f} (rtol {DECODE_RTOL}, atol {DECODE_ATOL})")
+
+    bf16_step = step_readings(decode_timer(eng.weights), reps=10)
+    pb, ps = 8, 512
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab, (pb, ps))).to(dev)
+    logits = lm.prefill(eng.weights, cfg, plan, None, prompts)
+    require(logits.shape == (pb, cfg.vocab)
+            and bool(torch.isfinite(logits).all()),
+            f"{cfg.name}: prefill logits not finite")
+    pre = step_readings(lambda: lm.prefill(eng.weights, cfg, plan, None,
+                                           prompts), reps=3)
+    flops = prefill_flops(cfg, pb, ps)
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    print(f"  {cfg.name} readings ({smi}):")
+    for label, r, nbytes in (("fp32 weights cast at every use", fp32_step,
+                              fp32_bytes + 2 * step_bytes),
+                             ("resident bf16 copy", bf16_step, step_bytes)):
+        b = nbytes / PEAK_BYTES_PER_S * 1e3
+        print(f"    decode step, batch {batch}, {label}: {r['ms']:.3f} ms "
+              f"by events back to back; under the profiler the device is "
+              f"busy {r['busy_ms']:.3f} ms a step (idle share "
+              f"{r['idle']:.3f}), {r['activities']:.0f} device activities "
+              f"a step; bound {b:.3f} ms ({nbytes / 1e9:.2f} GB over "
+              f"{PEAK_BYTES_PER_S:.3g} B/s); device ms a step by op: "
+              f"{r['top']}")
+    print(f"    drain: {n_requests * new_tokens / drain_s:.1f} tokens/s")
+    print(f"    prefill B = {pb}, S = {ps}: {pre['ms']:.2f} ms by events; "
+          f"device busy {pre['busy_ms']:.2f} ms (idle share "
+          f"{pre['idle']:.3f}), {pre['activities']:.0f} activities; bound "
+          f"{flops / PEAK_BF16_FLOPS_PER_S * 1e3:.2f} ms ({flops / 1e12:.2f} "
+          f"TFLOP over {PEAK_BF16_FLOPS_PER_S:.3g} FLOP/s bf16); device ms "
+          f"by op: {pre['top']}")
+    copy = sum(t.numel() * t.element_size()
+               for t in tree_leaves(eng.weights))
+    print(f"    peak memory allocated while serving (after the fp32 params "
+          f"were freed): {peak / 2 ** 30:.2f} GiB, of which the bf16 copy "
+          f"of the weights {copy / 2 ** 30:.2f} GiB")
+
+
+def run_lm_path(dev, smi: str) -> None:
+    """Phase 7: the smoke configs, then tinyllama-1.1b and granite-8b at
+    full width; no kernel of K1-K7 launches on this path."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    check_lm_smoke(dev)
+    serve_full_width(get_config("tinyllama_1_1b"), dev, smi, max_seq=256,
+                     n_requests=16, prompt_len=8, new_tokens=32)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    serve_full_width(get_config("granite_8b"), dev, smi, max_seq=128,
+                     n_requests=8, prompt_len=16, new_tokens=16)
+    launched = {k: n for k, n in ops.launch_counts().items() if n}
+    require(not launched, f"the LM path launched {launched}")
+    print("  kernel launches on the LM path: none of K1-K7")
+
+
+# ---------------------------------------------------------------------------
 
 
 def ptxas_usage(report: str):
@@ -3147,6 +3521,10 @@ def main() -> int:
         require(service.main([]) == 0, "service.main failed")
         print(f"  service.main on the card: 0 failures in "
               f"{time.perf_counter() - t0:.1f} s")
+        del small
+
+    with phase("7. LM serving"):
+        run_lm_path(dev, smi)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

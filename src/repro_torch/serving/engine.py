@@ -1,0 +1,148 @@
+"""Batched serving engine: continuous-batching decode over the model's
+cache, with RelShard stage-boundary re-planning on measured occupancy.
+
+The engine keeps one fixed-shape decode step (batch = ``max_batch``) and
+fills slots from a FIFO request queue (continuous batching). Measured
+occupancy is the adaptive runtime statistic: ``maybe_replan`` re-runs the
+planner with it (paper §4.1 re-optimization) and reports when the physical
+plan would change.
+
+A request's tokens depend on its prompt alone, never on what else shares
+the batch: admission resets the slot's position to 0, and the prompt is
+teacher-forced through ``decode_step`` on that slot's rows of the cache
+only, so no other slot's K/V or position moves. (The reference engine
+advances and writes every slot while it admits one, and never resets a
+reused slot; see ``ROADMAP.md`` §3.) A request that would write past
+``max_seq`` is refused at ``submit``.
+
+The engine keeps one bf16 copy of the weights on its device
+(``lm.cast_params``): every use casts a weight to bf16 first, so the copy
+gives the same bits as casting at every step, and a decode step reads half
+the bytes.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+from typing import Deque, Dict, List, Optional
+
+import torch
+
+from ..core.relshard import ShardingPlan, replan
+from ..joins.table import resolve_device
+from ..models import lm
+from ..models.config import ModelConfig, ShapeConfig
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: List[int]
+    max_new_tokens: int
+    out: List[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+class ServeEngine:
+    def __init__(self, cfg: ModelConfig, plan: ShardingPlan, mesh, params,
+                 max_batch: int = 8, max_seq: int = 512,
+                 mesh_axes=None, shape: Optional[ShapeConfig] = None,
+                 device=None):
+        self.cfg, self.plan, self.mesh = cfg, plan, mesh
+        self.max_batch, self.max_seq = max_batch, max_seq
+        self.mesh_axes, self.shape = mesh_axes, shape
+        self.device = resolve_device(device)
+        self.weights = lm.cast_params(params, self.device)
+        self.cache = lm.init_cache(cfg, max_batch, max_seq, self.device)
+        self.slots: List[Optional[Request]] = [None] * max_batch
+        # FIFO admission queue; popleft is O(1) under deep backlogs.
+        self.queue: Deque[Request] = collections.deque()
+        self._next: Dict[int, int] = {}       # slot -> token it feeds next
+        self.replan_events: List[str] = []
+
+    # -- queueing -------------------------------------------------------------
+
+    def submit(self, req: Request) -> None:
+        if not req.prompt:
+            raise ValueError(f"request {req.rid} has an empty prompt")
+        if len(req.prompt) + req.max_new_tokens > self.max_seq:
+            raise ValueError(
+                f"request {req.rid}: a prompt of {len(req.prompt)} tokens "
+                f"and {req.max_new_tokens} new tokens exceed max_seq = "
+                f"{self.max_seq}")
+        self.queue.append(req)
+
+    def _decode(self, tokens, cache):
+        return lm.decode_step(self.weights, self.cfg, self.plan, self.mesh,
+                              tokens, cache)
+
+    def _admit(self) -> None:
+        for i, slot in enumerate(self.slots):
+            if slot is None and self.queue:
+                req = self.queue.popleft()
+                self.slots[i] = req
+                self._prefill_slot(i, req.prompt[:-1])
+                self._next[i] = req.prompt[-1]
+
+    def _prefill_slot(self, i: int, tokens: List[int]) -> None:
+        """Reset slot ``i`` and teacher-force ``tokens`` through decode steps
+        on its rows of the cache alone (views, written in place)."""
+        self.cache["pos"][i] = 0
+        if not tokens:
+            return
+        view = {"k": self.cache["k"][:, i:i + 1],
+                "v": self.cache["v"][:, i:i + 1],
+                "pos": self.cache["pos"][i:i + 1]}
+        feed = torch.tensor(tokens, dtype=torch.int32, device=self.device)
+        for t in range(len(tokens)):
+            _, view = self._decode(feed[t:t + 1, None], view)
+        self.cache["pos"][i] = len(tokens)
+
+    # -- decode ----------------------------------------------------------------
+
+    def occupancy(self) -> int:
+        return sum(s is not None for s in self.slots)
+
+    def step(self) -> Dict[int, int]:
+        """One batched decode step for all live slots. Returns {rid: token}."""
+        self._admit()
+        feed = [self._next[i] if req is not None else 0
+                for i, req in enumerate(self.slots)]
+        tokens = torch.tensor(feed, dtype=torch.int32,
+                              device=self.device)[:, None]
+        logits, self.cache = self._decode(tokens, self.cache)
+        out = torch.argmax(logits, dim=-1).tolist()
+        emitted: Dict[int, int] = {}
+        for i, req in enumerate(self.slots):
+            if req is None:
+                continue
+            tok = int(out[i])
+            req.out.append(tok)
+            self._next[i] = tok
+            emitted[req.rid] = tok
+            if len(req.out) >= req.max_new_tokens:
+                req.done = True
+                self.slots[i] = None
+        return emitted
+
+    # -- adaptive re-planning ----------------------------------------------------
+
+    def maybe_replan(self) -> Optional[ShardingPlan]:
+        """Paper §4.1 step 2-3 at a serving stage boundary: feed measured
+        occupancy (runtime statistic) back into the cost model. Returns the
+        new plan if any strategy changed, else None."""
+        if self.mesh_axes is None or self.shape is None:
+            return None
+        new = replan(self.plan, self.cfg, self.mesh_axes, self.shape,
+                     measured_tokens=max(self.occupancy(), 1))
+        changed = (new.embed_strategy != self.plan.embed_strategy
+                   or new.head_strategy != self.plan.head_strategy
+                   or new.moe_strategy != self.plan.moe_strategy)
+        if changed:
+            self.replan_events.append(
+                f"occupancy={self.occupancy()}: "
+                f"embed {self.plan.embed_strategy}->{new.embed_strategy}, "
+                f"moe {self.plan.moe_strategy}->{new.moe_strategy}")
+            return new
+        return None

@@ -2,8 +2,9 @@
 and the main path, the text-only and skew-target suites, the skew-aware
 path, the runtime-filter path, the reordering and hypercube path, the
 query service and the nested-loop joins on the card against the same paths
-on the CPU, and the distributed twins on the card (4 ranks under gloo, 1
-under NCCL) against the global view.
+on the CPU, the distributed twins on the card (4 ranks under gloo, 1
+under NCCL) against the global view, and the dense decoder's smoke configs
+on the card against the CPU.
 
 Every test here is marked ``cuda`` and skips without a card. The file
 imports neither JAX nor the JAX package, and uses no fixture of
@@ -697,3 +698,16 @@ def test_distributed_twins_on_the_card_equal_the_global_view(cuda, world,
     reports = cs.run_twins(inputs, expected, world, backend, reps=1)
     assert len(reports) == world
     cs.check_twin_reports(reports, f"world {world} under {backend}")
+
+
+def test_lm_smoke_configs_on_the_card_equal_the_cpu(cuda):
+    """``chip_smoke.py`` phase 7a: for the six smoke configs of the DENSE,
+    VLM and AUDIO families, forward is finite on the card; hidden states,
+    prefill logits and every decode step's logits equal the CPU run on the
+    same params (rtol 2^-5, atol 2^-4, mean 2^-6); teacher-forced decode
+    reproduces forward (rtol 0.2, atol 0.25). ``require`` raises otherwise."""
+    from repro_torch.kernels import ops
+    cs = _chip_smoke_by_name()
+    ops.reset_launch_counts()
+    cs.check_lm_smoke(cuda)
+    assert not any(ops.launch_counts().values())
