@@ -144,7 +144,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    forward at B = 2, S = 64; and the readings: the decode step at batch 8
    (fp32 weights cast at every use, and the engine's resident bf16 copy),
    tokens/s while draining, one prefill at B = 8, S = 512, and the peak
-   memory, each beside its bound.
+   memory, each beside its bound;
+8. the MoE, hybrid and RWKV-6 families, launch counts set to 0 just before
+   and required to stay 0: the smoke configs of dbrx_132b,
+   qwen3_moe_235b_a22b, zamba2_7b and rwkv6_3b on the card against the
+   port's CPU run on the same params and the CPU's routing (hidden states,
+   prefill and every decode step's logits, moe_load and moe_dropped equal,
+   the card's own router picks within 2^-5 of the CPU's), teacher-forced
+   decode against forward; qwen3's router width with two equal columns
+   (ties in ascending expert order on both devices); then zamba2-7b (81
+   layers) and rwkv6-3b (32) at full width and depth, qwen3-moe-235b-a22b
+   (3 of 94 layers) and dbrx-132b (2 of 40) at full width, each through
+   phase 7's engine checks (8 requests of 16 + 16 tokens, 128 positions;
+   MoE oracles on the routing of the run they check, at the dropless
+   capacity; for zamba2 and rwkv6, whose bf16 decode leaves forward at
+   depth as the reference's does, the differences printed and the checks
+   run again on an f32 twin of the same code and weights), no decode call
+   dropping an MoE assignment, and the readings: the decode step from the
+   engine's copy, tokens/s, one prefill at B = 8, S = 512 (with the MoE
+   loads and dropped share) and the peak memory, each beside its bound.
 
 With ``--save-inputs PATH`` it saves the inputs at which it timed the
 bitonic sort, the bloom build and key_range, for
@@ -3088,10 +3106,15 @@ def teacher_forced_decode(params, cfg, plan, tokens):
     return torch.stack(outs, dim=1)
 
 
-def check_lm_smoke(dev) -> None:
-    """Phase 7a. Each smoke config on the card: forward finite; the card's
-    hidden states, prefill logits and decode logits against the port's CPU
-    run on the same params; teacher-forced decode against forward."""
+def check_lm_smoke(dev, archs=LM_SMOKE_ARCHS) -> None:
+    """Phases 7a and 8a. Each smoke config on the card against the port's
+    CPU run on the same params, on the CPU run's router choices
+    (``routing_tap``; nothing to record without experts): forward finite;
+    hidden states, prefill logits and every decode step's logits; for the
+    MoE configs the loads equal and summing to tokens x top_k in every
+    layer, and the dropped share equal; teacher-forced decode against
+    forward on the card (an MoE forward at the dropless capacity, decode
+    on its routing)."""
     import dataclasses
 
     import numpy as np
@@ -3102,44 +3125,86 @@ def check_lm_smoke(dev) -> None:
     from repro_torch.models import lm
     from repro_torch.models.config import SHAPE_BY_NAME
     cpu = torch.device("cpu")
-    for i, arch in enumerate(LM_SMOKE_ARCHS):
+    B, S, S_DEC = 2, 64, 16
+    for i, arch in enumerate(archs):
         cfg = get_smoke_config(arch)
         plan = plan_model(cfg, LM_MESH, SHAPE_BY_NAME["train_4k"],
                           fsdp=False)
         host = lm.init_params(cfg, seed=i, device=cpu)
         params = lm.params_from_numpy(lm.params_to_numpy(host), dev)
         rng = np.random.default_rng(i)
-        tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 64)))
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)))
         cond = None
         if cfg.n_cond_tokens:
             cond = torch.from_numpy(0.01 * rng.standard_normal(
-                (2, cfg.n_cond_tokens, cfg.d_model))).to(torch.bfloat16)
+                (B, cfg.n_cond_tokens, cfg.d_model))).to(torch.bfloat16)
         on = (lambda x: None if x is None else x.to(dev))  # noqa: E731
-        hidden, _ = lm.forward(params, cfg, plan, None, on(tokens), on(cond))
+        routed = {"calls": 0, "differed": 0}
+
+        def cpu_then_card(fn, cpu_args, card_args):
+            rec = []
+            with routing_tap(record=rec):
+                ref = fn(host, *cpu_args)
+            with routing_tap(force=rec) as st:
+                out = fn(params, *card_args)
+            routed["calls"] += st["calls"]
+            routed["differed"] += st["differed"]
+            return out, ref
+
+        def fwd(p, tk, cd):
+            return lm.forward(p, cfg, plan, None, tk, cd)
+
+        def pre(p, tk, cd):
+            return lm.prefill(p, cfg, plan, None, tk, cd)
+
+        (hidden, aux), (h_cpu, aux_cpu) = cpu_then_card(
+            fwd, (tokens, cond), (on(tokens), on(cond)))
         require(bool(torch.isfinite(hidden.float()).all()),
                 f"{arch}: forward is not finite on the card")
-        h_err = lm_close(hidden, lm.forward(host, cfg, plan, None, tokens,
-                                            cond)[0],
-                         f"{arch} hidden, card vs CPU", CARD_RTOL, CARD_ATOL,
-                         CARD_MEAN_ATOL)
-        p_err = lm_close(lm.prefill(params, cfg, plan, None, on(tokens),
-                                    on(cond)),
-                         lm.prefill(host, cfg, plan, None, tokens, cond),
+        h_err = lm_close(hidden, h_cpu, f"{arch} hidden, card vs CPU",
+                         CARD_RTOL, CARD_ATOL, CARD_MEAN_ATOL)
+        moe_note = ""
+        if cfg.is_moe:
+            require(torch.equal(aux.moe_load.cpu(), aux_cpu.moe_load),
+                    f"{arch}: moe_load, card vs CPU")
+            require(bool((aux.moe_load.sum(dim=1) == B * S * cfg.top_k
+                          ).all()), f"{arch}: moe_load sums")
+            require(float(aux.moe_dropped) == float(aux_cpu.moe_dropped),
+                    f"{arch}: moe_dropped, card vs CPU")
+            moe_note = (f"; moe_load equal, {B * S * cfg.top_k} a layer, "
+                        f"moe_dropped {float(aux.moe_dropped):.4f} equal")
+        p_err = lm_close(*cpu_then_card(pre, (tokens, cond),
+                                        (on(tokens), on(cond))),
                          f"{arch} prefill logits, card vs CPU", CARD_RTOL,
                          CARD_ATOL, CARD_MEAN_ATOL)
         c0 = dataclasses.replace(cfg, n_cond_tokens=0)
-        dec = teacher_forced_decode(params, c0, plan, on(tokens[:, :16]))
-        f_err = lm_close(dec, all_position_logits(params, c0, plan,
-                                                  on(tokens[:, :16])),
-                         f"{arch} decode vs forward on the card",
-                         DECODE_RTOL, DECODE_ATOL)
-        d_err = lm_close(dec, teacher_forced_decode(host, c0, plan,
-                                                    tokens[:, :16]),
-                         f"{arch} decode logits, card vs CPU", CARD_RTOL,
-                         CARD_ATOL, CARD_MEAN_ATOL)
+
+        def decode(p, tk):
+            return teacher_forced_decode(p, c0, plan, tk)
+
+        dec, d_cpu = cpu_then_card(decode, (tokens[:, :S_DEC],),
+                                   (on(tokens[:, :S_DEC]),))
+        d_err = lm_close(dec, d_cpu, f"{arch} decode logits, card vs CPU",
+                         CARD_RTOL, CARD_ATOL, CARD_MEAN_ATOL)
+        rec = []
+        with (dropless_moe() if cfg.is_moe else contextlib.nullcontext()), \
+                routing_tap(record=rec):
+            full = all_position_logits(params, c0, plan,
+                                       on(tokens[:, :S_DEC]))
+        with routing_tap(force=decode_order(rec, B, S_DEC)) as st:
+            f_err = lm_close(decode(params, on(tokens[:, :S_DEC])), full,
+                             f"{arch} decode vs forward on the card",
+                             DECODE_RTOL, DECODE_ATOL)
+        if cfg.is_moe:
+            moe_note += (f"; routing: the card's own pick differed from the "
+                         f"CPU's for {routed['differed']} token-layers of "
+                         f"{routed['calls']} router calls, decode's from "
+                         f"forward's for {st['differed']}, each within "
+                         f"{ROUTE_GAP}")
         print(f"  smoke {arch}: forward finite; largest difference card vs "
               f"CPU: hidden {h_err:.4f}, prefill logits {p_err:.4f}, decode "
-              f"logits {d_err:.4f}; decode vs forward {f_err:.4f}")
+              f"logits {d_err:.4f}; decode vs forward {f_err:.4f}"
+              f"{moe_note}")
 
 
 def tree_leaves(tree):
@@ -3191,75 +3256,235 @@ def step_readings(fn, reps: int) -> dict:
     return out
 
 
-def lm_weight_bytes(weights, batch: int) -> int:
+def lm_weight_bytes(cfg, weights, batch: int) -> int:
     """Bytes of the weights one decode step reads: every block, the final
-    norm and the head, and one embedding row a sequence."""
-    return sum((batch * t.shape[-1] if name == "embed" else t.numel())
-               * t.element_size()
-               for name, tree in weights.items() for t in tree_leaves(tree))
+    norm and the head, one embedding row a sequence, and the hybrid's
+    shared block once for each of its applications (it does not stay in
+    L2). Every expert counts: the replicated MoE path runs all of them."""
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+    total = 0
+    for name, tree in weights.items():
+        if name == "embed":
+            total += batch * sum(t.shape[-1] * t.element_size()
+                                 for t in tree_leaves(tree))
+        elif name == "shared_attn":
+            total += nbytes(tree) * (cfg.n_layers // cfg.attn_every)
+        else:
+            total += nbytes(tree)
+    return total
 
 
-def prefill_flops(cfg, batch: int, seq: int) -> float:
-    """Operations a prefill of (batch, seq) needs: the blocks' weight
-    products over every token, the attention scores and their products over
-    the causal half, and the head at the last position."""
-    head = cfg.vocab * cfg.d_model
-    blocks = cfg.param_count() - head * (1 if cfg.tie_embeddings else 2)
-    attention = 2 * 2 * cfg.n_layers * cfg.n_heads * cfg.hd * seq * (
-        seq + 1) / 2
-    return 2.0 * blocks * batch * seq + batch * attention + 2.0 * head * batch
+#: Leaves read by a product (or the conv's taps): two operations per
+#: element per token.
+MATMUL_LEAVES = frozenset({
+    "w_q", "w_k", "w_v", "w_o", "w_gate", "w_up", "w_down", "router",
+    "w_in", "w_out", "conv_w", "w_r", "w_g", "decay_a", "decay_b", "w_kc",
+    "w_vc"})
 
 
-def serve_full_width(cfg, dev, smi: str, max_seq: int, n_requests: int,
-                     prompt_len: int, new_tokens: int) -> None:
-    """Phase 7b/7c. One model at its full width on the card: a ServeEngine
-    of 8 slots drains ``n_requests`` requests; FIFO admission, occupancy,
-    completion and the vocab are checked; four requests chosen in advance
-    are held against forward over their own tokens; teacher-forced decode
-    reproduces forward at B = 2, S = 64; the decode step (with the fp32
-    weights cast at every use, and from the engine's resident bf16 copy),
-    the drain and one prefill are timed beside their bounds."""
-    import numpy as np
-    import torch
+def weight_flops(tree, expert_share: float = 1.0) -> float:
+    """2 operations per product weight, per token; the MoE experts (the
+    leaves stacked (L, E, ...)) scaled by the share of them a token uses."""
+    out = 0.0
+    for name, v in tree.items():
+        if isinstance(v, dict):
+            out += weight_flops(v, expert_share)
+        elif name in MATMUL_LEAVES:
+            out += 2.0 * v.numel() * (expert_share if v.dim() == 4 else 1.0)
+    return out
 
+
+def prefill_flops(cfg, weights, batch: int, seq: int) -> float:
+    """Operations a prefill of (batch, seq) needs at the least: every
+    token through the blocks' product weights (an MoE token through its
+    top_k experts only), the attention scores and their products over the
+    causal half, the SSD and WKV chunks' products, and the head at the
+    last position."""
+    from repro_torch.models import lm
+    from repro_torch.models.config import Family
+    tokens = batch * seq
+    per_token = weight_flops(weights["blocks"],
+                             cfg.top_k / max(cfg.n_experts, 1))
+    attn_layers = cfg.n_layers
+    if cfg.family is Family.HYBRID:
+        n_seg = cfg.n_layers // cfg.attn_every
+        per_token += n_seg * weight_flops(weights["shared_attn"])
+        attn_layers = n_seg
+        c = min(seq, 128)
+        heads = lm.ssm_heads(cfg)
+        hd = 2 * cfg.d_model // heads
+        # C.B scores, the intra products and the state update, per token
+        per_token += cfg.n_layers * (2 * c * cfg.ssm_state + heads * (
+            2 * c * hd + 4 * hd * cfg.ssm_state))
+    if cfg.family is Family.SSM:
+        attn_layers = 0
+        c, hd = min(seq, 64), cfg.rwkv_head_dim
+        heads = cfg.d_model // hd
+        per_token += cfg.n_layers * heads * (4 * c * hd + 4 * hd * hd)
+    attention = 2 * 2 * attn_layers * cfg.n_heads * cfg.hd * (seq + 1) / 2
+    head = 2.0 * cfg.vocab * cfg.d_model * batch
+    return per_token * tokens + attention * tokens + head
+
+
+#: How far below the recorded pick a router's own pick may lie, in the
+#: recorded probabilities, at every rank: the card-vs-CPU relative
+#: tolerance 2^-5 applied to probabilities, which lie below 1.
+ROUTE_GAP = 2 ** -5
+
+
+def pick_gap(own_ids, src_probs) -> float:
+    """The largest, over tokens and ranks, of how far the source's
+    probability of a pick lies from the source's own pick's at that rank."""
+    own_ids, src_probs = own_ids.cpu(), src_probs.float().cpu()
+    top = src_probs.sort(dim=-1, descending=True).values[:, :own_ids.shape[1]]
+    return float((src_probs.gather(1, own_ids) - top).abs().max())
+
+
+@contextlib.contextmanager
+def routing_tap(record: list | None = None, force: list | None = None):
+    """Patch the port's top-k router choice (``moe.top_k_lowest_first``)
+    for a cross-check. Two numeric paths (the card and the CPU, forward and
+    decode) round a router's inputs differently and, where two experts'
+    probabilities nearly tie, pick different ones, which moves a token by
+    O(1); so outputs are compared on one routing. With ``record``, each
+    call's (ids, probs) is appended (device tensors, no sync); with
+    ``force``, the calls get the recorded ids in order, after the call's
+    own pick is required to lie within ``ROUTE_GAP`` of the recorded one.
+    Yields a dict: calls, tokens whose own pick differed, largest gap."""
+    from repro_torch.layers import moe
+    orig = moe.top_k_lowest_first
+    queue = list(force or [])
+    stats = {"calls": 0, "differed": 0, "gap": 0.0}
+
+    def top_k(probs, k):
+        vals, own = orig(probs, k)
+        stats["calls"] += 1
+        if record is not None:
+            record.append((own, probs))
+        if force is None:
+            return vals, own
+        require(bool(queue), "more router calls than recorded ones")
+        ids, src = queue.pop(0)
+        gap = pick_gap(own, src)
+        require(gap <= ROUTE_GAP, f"a router pick {gap:.4f} off the "
+                f"recorded one, beyond {ROUTE_GAP}")
+        stats["differed"] += int((own.cpu() != ids.cpu()).any(dim=1).sum())
+        stats["gap"] = max(stats["gap"], gap)
+        ids = ids.to(probs.device)
+        return probs.gather(-1, ids), ids
+    moe.top_k_lowest_first = top_k
+    try:
+        yield stats
+    finally:
+        moe.top_k_lowest_first = orig
+    require(not queue, f"{len(queue)} recorded router calls were not used")
+
+
+@contextlib.contextmanager
+def dropless_moe():
+    """Every expert takes every assignment (``moe.moe_capacity`` patched to
+    the assignment count) for an oracle run of ``forward``: over B*S
+    tokens the reference's capacity drops assignments that the engine's
+    steps over at most 8 tokens keep."""
+    from repro_torch.layers import moe
+    orig = moe.moe_capacity
+    moe.moe_capacity = lambda n, n_experts, factor=1.5: n
+    try:
+        yield
+    finally:
+        moe.moe_capacity = orig
+
+
+def decode_order(recorded: list, B: int, S: int) -> list:
+    """A forward's per-layer routing of (B*S) rows, re-cut into the
+    per-step, per-layer order of a teacher-forced decode of B rows."""
+    out = []
+    for t in range(S):
+        for ids, probs in recorded:
+            out.append((ids.reshape(B, S, -1)[:, t],
+                        probs.reshape(B, S, -1)[:, t]))
+    return out
+
+
+def trace_engine_routing(eng, rids) -> dict:
+    """Wrap this engine's ``_decode`` and ``_prefill_slot`` so that each
+    request in ``rids`` gets, position by position, every MoE layer's
+    (ids, probs) row of its token, from its admission steps and the
+    batched steps alike (device tensors)."""
+    per_req = {rid: [] for rid in rids}
+    admitting = {"slot": None}
+    decode, prefill_slot = eng._decode, eng._prefill_slot
+
+    def traced_prefill(i, tokens):
+        admitting["slot"] = i
+        try:
+            prefill_slot(i, tokens)
+        finally:
+            admitting["slot"] = None
+
+    def traced_decode(tokens, cache):
+        rec = []
+        with routing_tap(record=rec):
+            out = decode(tokens, cache)
+        i = admitting["slot"]
+        rows = {i: 0} if i is not None else {j: j for j in
+                                             range(len(eng.slots))}
+        for slot, row in rows.items():
+            req = eng.slots[slot]
+            if req is not None and req.rid in per_req:
+                per_req[req.rid].append([(ids[row], probs[row])
+                                         for ids, probs in rec])
+        return out
+    eng._decode, eng._prefill_slot = traced_decode, traced_prefill
+    return per_req
+
+
+@contextlib.contextmanager
+def compute_dtype(dtype):
+    """Run the port's layers in ``dtype`` instead of bf16 (every layer
+    module's ``COMPUTE_DTYPE``; ``lm.cast_params`` then keeps the fp32
+    leaves as they are): the f32 twin that phase 8 holds the recurrent
+    families' decode against forward in, where bf16 rounding at the two
+    forms' different points grows with depth (``ROADMAP.md`` §3)."""
+    from repro_torch.layers import (attention, common, embedding, moe, rwkv,
+                                    ssm)
+    mods = (attention, common, embedding, moe, rwkv, ssm)
+    saved = [m.COMPUTE_DTYPE for m in mods]
+    for m in mods:
+        m.COMPUTE_DTYPE = dtype
+    try:
+        yield
+    finally:
+        for m, d in zip(mods, saved):
+            m.COMPUTE_DTYPE = d
+
+
+def build_engine(cfg, dev, max_seq: int, batch: int):
+    """Random fp32 params (seed 0), the plan and a ServeEngine of ``batch``
+    slots holding its copy of the weights; returns (params, plan, eng)."""
     from repro_torch.core.relshard import plan_model
     from repro_torch.models import lm
     from repro_torch.models.config import ShapeConfig
-    from repro_torch.serving.engine import Request, ServeEngine
-    cuda = dev.type == "cuda"
-    batch = 8
-    t0 = time.perf_counter()
+    from repro_torch.serving.engine import ServeEngine
     params = lm.init_params(cfg, seed=0, device=dev)
     plan = plan_model(cfg, LM_MESH, ShapeConfig("serve", max_seq, batch,
                                                 "decode"), fsdp=False)
     eng = ServeEngine(cfg, plan, None, params, max_batch=batch,
                       max_seq=max_seq, device=dev)
     synchronize(dev)
-    print(f"  {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
-          f"{cfg.n_heads}/{cfg.kv_heads} heads, d_ff {cfg.d_ff}, vocab "
-          f"{cfg.vocab}; {cfg.param_count() / 1e9:.2f} B params (analytic); "
-          f"fp32 params and the engine's bf16 copy built in "
-          f"{time.perf_counter() - t0:.1f} s")
+    return params, plan, eng
 
-    rng = np.random.default_rng(7)
-    tok8 = torch.from_numpy(rng.integers(0, cfg.vocab, (batch, 1))).to(dev)
-    step_bytes = lm_weight_bytes(eng.weights, batch)
-    fp32_bytes = lm_weight_bytes(params, batch)
 
-    def decode_timer(weights):
-        cache = lm.init_cache(cfg, batch, max_seq, device=dev)
-        cache["pos"].fill_(max_seq // 2)
-        return lambda: lm.decode_step(weights, cfg, plan, None, tok8, cache)
-
-    fp32_step = step_readings(decode_timer(params), reps=5)
-    del params
-    if cuda:
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-
-    reqs = [Request(i, rng.integers(0, cfg.vocab, prompt_len).tolist(),
-                    new_tokens) for i in range(n_requests)]
+def drain_engine(eng, cfg, dev, prompts: list, new_tokens: int, picks):
+    """Submit one request per prompt and step the engine until it drains,
+    checking FIFO admission, occupancy, completion, the vocab and that no
+    decode call dropped an MoE assignment. Returns (requests, steps, wall
+    s, the picked requests' routing for an MoE config)."""
+    from repro_torch.serving.engine import Request
+    reqs = [Request(i, list(p), new_tokens) for i, p in enumerate(prompts)]
     rids = [r.rid for r in reqs]
+    traced = trace_engine_routing(eng, picks) if cfg.is_moe else None
     for r in reqs:
         eng.submit(r)
     max_occ, steps = 0, 0
@@ -3274,59 +3499,220 @@ def serve_full_width(cfg, dev, smi: str, max_seq: int, n_requests: int,
         require(steps < 10_000, f"{cfg.name}: the engine does not drain")
     synchronize(dev)
     drain_s = time.perf_counter() - t1
+    if traced is not None:
+        # back to the class's methods: the wrappers' closures hold the engine
+        del eng._decode, eng._prefill_slot
     require(all(r.done and len(r.out) == new_tokens for r in reqs),
             f"{cfg.name}: a request did not complete")
-    require(max_occ <= batch, f"{cfg.name}: occupancy {max_occ} > {batch}")
+    require(max_occ <= eng.max_batch,
+            f"{cfg.name}: occupancy {max_occ} > {eng.max_batch}")
     require(all(0 <= t < cfg.vocab for r in reqs for t in r.out),
             f"{cfg.name}: a token outside the vocab")
-    print(f"  {cfg.name}: {n_requests} requests of {prompt_len} prompt "
+    require(eng.dropped_decode_calls == 0,
+            f"{cfg.name}: {eng.dropped_decode_calls} decode calls dropped "
+            f"an MoE assignment")
+    print(f"  {cfg.name}: {len(reqs)} requests of {len(prompts[0])} prompt "
           f"tokens and {new_tokens} new drained in {steps} steps, "
           f"{drain_s * 1e3:.1f} ms (admission's per-slot prefill included): "
-          f"{n_requests * new_tokens / drain_s:.1f} tokens/s; occupancy at "
-          f"most {max_occ}, admission FIFO, every token in the vocab")
+          f"{len(reqs) * new_tokens / drain_s:.1f} tokens/s; occupancy at "
+          f"most {max_occ}, admission FIFO, every token in the vocab"
+          + ("; no decode call dropped an MoE assignment" if cfg.is_moe
+             else ""))
+    return reqs, steps, drain_s, traced
 
-    picks = (0, n_requests // 3, 2 * n_requests // 3, n_requests - 1)
+
+def against_forward(eng, cfg, plan, dev, reqs, picks, traced, tokens,
+                    gate: bool = True) -> str:
+    """The engine's picked requests against forward over their own tokens
+    (every token within TOKEN_GAP of forward's largest logit, forward's
+    argmax where its margin is wider), and teacher-forced decode of
+    ``tokens`` against forward (the reference's tolerance); an MoE forward
+    at the dropless capacity on the routing of the run it checks. With
+    ``gate`` False the differences are measured and returned, not
+    required."""
+    import torch
+    picked_gap, cleared, n_tokens = 0.0, True, 0
     for rid in picks:
         r = reqs[rid]
         seq = torch.tensor([r.prompt + r.out[:-1]], device=dev)
-        logits = all_position_logits(eng.weights, cfg, plan, seq)[
-            0, prompt_len - 1:]
+        force, dropless = None, contextlib.nullcontext()
+        if cfg.is_moe:
+            positions = traced[rid]
+            require(len(positions) == seq.shape[1],
+                    f"{cfg.name} request {rid}: {len(positions)} traced "
+                    f"positions for {seq.shape[1]} tokens")
+            force = [(torch.stack([p[layer][0] for p in positions]),
+                      torch.stack([p[layer][1] for p in positions]))
+                     for layer in range(cfg.n_layers)]
+            dropless = dropless_moe()
+        with dropless, routing_tap(force=force) as routed:
+            logits = all_position_logits(eng.weights, cfg, plan, seq)[
+                0, len(r.prompt) - 1:]
         out = torch.tensor(r.out, device=dev)
         gap = logits.max(dim=-1).values - logits.gather(1, out[:, None])[:, 0]
         top2 = logits.topk(2, dim=-1).values
         clear = (top2[:, 0] - top2[:, 1]) > TOKEN_GAP
+        picked_gap = max(picked_gap, float(gap.max()))
+        cleared &= bool((logits.argmax(dim=-1) == out)[clear].all())
+        n_tokens += len(r.out)
+        if not gate:
+            continue
         require(float(gap.max()) <= TOKEN_GAP,
                 f"{cfg.name} request {rid}: a token {float(gap.max()):.3f} "
                 f"below forward's largest logit")
-        require(bool((logits.argmax(dim=-1) == out)[clear].all()),
+        require(cleared,
                 f"{cfg.name} request {rid}: a token is not forward's argmax")
         print(f"    request {rid} against forward over its own tokens: "
-              f"{int(clear.sum())} of {new_tokens} tokens forward's argmax "
+              f"{int(clear.sum())} of {len(r.out)} tokens forward's argmax "
               f"by a margin above {TOKEN_GAP}, the rest within it; largest "
-              f"gap {float(gap.max()):.4f}")
+              f"gap {float(gap.max()):.4f}"
+              + (f"; on the engine's routing (forward's own pick differed "
+                 f"for {routed['differed']} token-layers, within "
+                 f"{routed['gap']:.4f})" if cfg.is_moe else ""))
 
+    B, S = tokens.shape
+    rec = []
+    with (dropless_moe() if cfg.is_moe else contextlib.nullcontext()), \
+            routing_tap(record=rec):
+        full = all_position_logits(eng.weights, cfg, plan, tokens)
+    with routing_tap(force=decode_order(rec, B, S)) as routed:
+        dec = teacher_forced_decode(eng.weights, cfg, plan, tokens)
+    if not gate:
+        err = (dec.float() - full.float()).abs()
+        outside = int((err > DECODE_ATOL + DECODE_RTOL * full.abs()).sum())
+        return (f"the picked requests' tokens lie up to {picked_gap:.4f} "
+                f"below forward's largest logit (argmax where clear: "
+                f"{cleared}); teacher-forced decode vs forward, B = {B}, S = "
+                f"{S}: largest difference {float(err.max()):.4f}, "
+                f"{outside} of {err.numel()} logits outside rtol "
+                f"{DECODE_RTOL}, atol {DECODE_ATOL}")
+    err = lm_close(dec, full, f"{cfg.name} decode vs forward", DECODE_RTOL,
+                   DECODE_ATOL)
+    print(f"    teacher-forced decode vs forward, B = {B}, S = {S}: largest "
+          f"difference {err:.4f} (rtol {DECODE_RTOL}, atol {DECODE_ATOL})"
+          + (f"; on forward's routing (decode's own pick differed for "
+             f"{routed['differed']} token-layers, within "
+             f"{routed['gap']:.4f})" if cfg.is_moe else ""))
+    return ""
+
+
+def serve_full_width(cfg, dev, smi: str, max_seq: int, n_requests: int,
+                     prompt_len: int, new_tokens: int,
+                     time_fp32: bool = True) -> None:
+    """Phases 7b/7c and 8b-8e. One model at its full width on the card: a
+    ServeEngine of 8 slots drains ``n_requests`` requests (``drain_engine``'s
+    checks); four requests chosen in advance are held against forward over
+    their own tokens, and teacher-forced decode against forward at B = 2,
+    S = 64 (``against_forward``); the decode step (from the engine's
+    resident copy, and with ``time_fp32`` with the fp32 weights cast at
+    every use), the drain and one prefill are timed beside their bounds.
+    For an MoE config the router's loads and filled slots are reported.
+    For the recurrent families (HYBRID, SSM) the bf16 run's differences
+    from forward are measured and printed, and the engine is built and
+    drained again in the f32 twin (``compute_dtype``), where they are
+    required."""
+    import numpy as np
+    import torch
+
+    from repro_torch.layers import moe
+    from repro_torch.models import lm
+    from repro_torch.models.config import Family
+    cuda = dev.type == "cuda"
+    batch = 8
+    f32_oracle = cfg.family in (Family.HYBRID, Family.SSM)
+    t0 = time.perf_counter()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    params, plan, eng = build_engine(cfg, dev, max_seq, batch)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    build_peak = torch.cuda.max_memory_allocated() if cuda else 0
+    print(f"  {cfg.name} ({cfg.family.value}): {cfg.n_layers} layers, d "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.kv_heads} heads, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}"
+          + (f", {cfg.n_experts} experts top-{cfg.top_k}" if cfg.is_moe
+             else "")
+          + f"; {n_params / 1e9:.3f} B params; fp32 params and the "
+          f"engine's copy built in {time.perf_counter() - t0:.1f} s, peak "
+          f"{build_peak / 1e9:.1f} GB allocated")
+
+    rng = np.random.default_rng(7)
+    tok8 = torch.from_numpy(rng.integers(0, cfg.vocab, (batch, 1))).to(dev)
+    step_bytes = lm_weight_bytes(cfg, eng.weights, batch)
+    fp32_bytes = lm_weight_bytes(cfg, params, batch)
+
+    def decode_timer(weights):
+        cache = lm.init_cache(cfg, batch, max_seq, device=dev)
+        cache["pos"].fill_(max_seq // 2)
+        return lambda: lm.decode_step(weights, cfg, plan, None, tok8, cache)
+
+    fp32_step = step_readings(decode_timer(params), reps=5) \
+        if time_fp32 else None
+    del params
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    prompts = [rng.integers(0, cfg.vocab, prompt_len).tolist()
+               for _ in range(n_requests)]
+    picks = (0, n_requests // 3, 2 * n_requests // 3, n_requests - 1)
+    reqs, steps, drain_s, traced = drain_engine(eng, cfg, dev, prompts,
+                                                new_tokens, picks)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 64))).to(dev)
-    err = lm_close(teacher_forced_decode(eng.weights, cfg, plan, tokens),
-                   all_position_logits(eng.weights, cfg, plan, tokens),
-                   f"{cfg.name} decode vs forward", DECODE_RTOL, DECODE_ATOL)
-    print(f"    teacher-forced decode vs forward, B = 2, S = 64: largest "
-          f"difference {err:.4f} (rtol {DECODE_RTOL}, atol {DECODE_ATOL})")
+    drift = against_forward(eng, cfg, plan, dev, reqs, picks, traced,
+                            tokens, gate=not f32_oracle)
+
+    moe_step = ""
+    if cfg.is_moe:
+        aux = []
+        cache = lm.init_cache(cfg, batch, max_seq, device=dev)
+        lm.decode_step(eng.weights, cfg, plan, None, tok8, cache,
+                       moe_aux=aux)
+        loads = torch.stack([a.load for a in aux])
+        dropped = max(float(a.dropped) for a in aux)
+        n = batch * cfg.top_k
+        cap = moe.moe_capacity(n, cfg.n_experts)
+        require(bool((loads.sum(dim=1) == n).all()),
+                f"{cfg.name}: a decode step's load does not sum to {n}")
+        require(dropped == 0.0, f"{cfg.name}: the decode step dropped "
+                f"{dropped:.4f} of its assignments")
+        moe_step = (f"; {n} assignments, 0 dropped, in {cfg.n_experts} x "
+                    f"{cap} expert slots a layer: "
+                    f"{n / (cfg.n_experts * cap):.4f} of them filled, the "
+                    f"rest computed on zeros")
 
     bf16_step = step_readings(decode_timer(eng.weights), reps=10)
     pb, ps = 8, 512
-    prompts = torch.from_numpy(rng.integers(0, cfg.vocab, (pb, ps))).to(dev)
-    logits = lm.prefill(eng.weights, cfg, plan, None, prompts)
+    prompts8 = torch.from_numpy(rng.integers(0, cfg.vocab, (pb, ps))).to(dev)
+    hidden, aux = lm.forward(eng.weights, cfg, plan, None, prompts8)
+    require(bool(torch.isfinite(hidden.float()).all()),
+            f"{cfg.name}: prefill hidden states not finite")
+    prefill_moe = ""
+    if cfg.is_moe:
+        require(bool((aux.moe_load.sum(dim=1) == pb * ps * cfg.top_k).all()),
+                f"{cfg.name}: the prefill's load does not sum to tokens x "
+                f"top_k")
+        cap = moe.moe_capacity(pb * ps * cfg.top_k, cfg.n_experts)
+        prefill_moe = (f"; moe_dropped {float(aux.moe_dropped):.4f}, load a "
+                       f"layer across experts min/median/max "
+                       + ", ".join(f"{int(lo.min())}/{int(lo.median())}/"
+                                   f"{int(lo.max())}"
+                                   for lo in aux.moe_load.float())
+                       + f" (capacity {cap})")
+    del hidden, aux
+    logits = lm.prefill(eng.weights, cfg, plan, None, prompts8)
     require(logits.shape == (pb, cfg.vocab)
             and bool(torch.isfinite(logits).all()),
             f"{cfg.name}: prefill logits not finite")
     pre = step_readings(lambda: lm.prefill(eng.weights, cfg, plan, None,
-                                           prompts), reps=3)
-    flops = prefill_flops(cfg, pb, ps)
+                                           prompts8), reps=3)
+    flops = prefill_flops(cfg, eng.weights, pb, ps)
     peak = torch.cuda.max_memory_allocated() if cuda else 0
     print(f"  {cfg.name} readings ({smi}):")
-    for label, r, nbytes in (("fp32 weights cast at every use", fp32_step,
-                              fp32_bytes + 2 * step_bytes),
-                             ("resident bf16 copy", bf16_step, step_bytes)):
+    timed = [("resident copy", bf16_step, step_bytes)]
+    if fp32_step is not None:
+        timed.insert(0, ("fp32 weights cast at every use", fp32_step,
+                         fp32_bytes + 2 * step_bytes))
+    for label, r, nbytes in timed:
         b = nbytes / PEAK_BYTES_PER_S * 1e3
         print(f"    decode step, batch {batch}, {label}: {r['ms']:.3f} ms "
               f"by events back to back; under the profiler the device is "
@@ -3334,19 +3720,43 @@ def serve_full_width(cfg, dev, smi: str, max_seq: int, n_requests: int,
               f"{r['idle']:.3f}), {r['activities']:.0f} device activities "
               f"a step; bound {b:.3f} ms ({nbytes / 1e9:.2f} GB over "
               f"{PEAK_BYTES_PER_S:.3g} B/s); device ms a step by op: "
-              f"{r['top']}")
+              f"{r['top']}" + (moe_step if r is bf16_step else ""))
     print(f"    drain: {n_requests * new_tokens / drain_s:.1f} tokens/s")
     print(f"    prefill B = {pb}, S = {ps}: {pre['ms']:.2f} ms by events; "
           f"device busy {pre['busy_ms']:.2f} ms (idle share "
           f"{pre['idle']:.3f}), {pre['activities']:.0f} activities; bound "
           f"{flops / PEAK_BF16_FLOPS_PER_S * 1e3:.2f} ms ({flops / 1e12:.2f} "
           f"TFLOP over {PEAK_BF16_FLOPS_PER_S:.3g} FLOP/s bf16); device ms "
-          f"by op: {pre['top']}")
+          f"by op: {pre['top']}{prefill_moe}")
     copy = sum(t.numel() * t.element_size()
                for t in tree_leaves(eng.weights))
     print(f"    peak memory allocated while serving (after the fp32 params "
-          f"were freed): {peak / 2 ** 30:.2f} GiB, of which the bf16 copy "
-          f"of the weights {copy / 2 ** 30:.2f} GiB")
+          f"were freed): {peak / 2 ** 30:.2f} GiB, of which the resident "
+          f"copy of the weights {copy / 2 ** 30:.2f} GiB")
+    if not f32_oracle:
+        return
+
+    print(f"    bf16 against forward, measured, not required (the reference's "
+          f"own decode leaves its forward as its depth grows; ROADMAP.md "
+          f"§3): {drift}")
+    del eng, logits
+    if cuda:
+        torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    with compute_dtype(torch.float32):
+        _, plan, eng = build_engine(cfg, dev, max_seq, batch)
+        require(all(t.dtype == torch.float32
+                    for t in tree_leaves(eng.weights)),
+                f"{cfg.name}: the f32 twin's weights are not f32")
+        print(f"  {cfg.name}, the f32 twin (every layer in f32, the same "
+              f"seed-0 weights and prompts):")
+        reqs, _, _, traced = drain_engine(eng, cfg, dev, prompts,
+                                          new_tokens, picks)
+        against_forward(eng, cfg, plan, dev, reqs, picks, traced, tokens)
+    print(f"    f32 twin: {time.perf_counter() - t2:.1f} s")
+    del eng
+    if cuda:
+        torch.cuda.empty_cache()
 
 
 def run_lm_path(dev, smi: str) -> None:
@@ -3367,6 +3777,101 @@ def run_lm_path(dev, smi: str) -> None:
     launched = {k: n for k, n in ops.launch_counts().items() if n}
     require(not launched, f"the LM path launched {launched}")
     print("  kernel launches on the LM path: none of K1-K7")
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the MoE, hybrid and RWKV-6 families
+# ---------------------------------------------------------------------------
+
+LM_FAMILY_ARCHS = ("dbrx_132b", "qwen3_moe_235b_a22b", "zamba2_7b",
+                   "rwkv6_3b")
+#: The full configs cut in depth to fit one card beside the engine's copy
+#: (fp32 params and the bf16 copy: 3 qwen3 layers ~52 GB, 4 would be ~67
+#: GB; 2 dbrx layers ~47 GB). The cut layers stand for the stages of a
+#: pipeline on further cards; no width is cut.
+LM_FAMILY_DEPTH = {"qwen3_moe_235b_a22b": 3, "dbrx_132b": 2}
+
+
+def check_router_ties(dev) -> None:
+    """Phase 8a, ties: qwen3's router width (d 4096, 128 experts, top 8)
+    with columns 0 and 1 equal (and scaled up, so that both lead often):
+    their logits are the same bits on either device, and wherever both are
+    chosen expert 0 comes first, on the card as on the CPU; on the card
+    every run of equal chosen probabilities is in ascending expert order;
+    the card's picks lie within ROUTE_GAP of the CPU's."""
+    import torch
+
+    from repro_torch.layers import moe
+    d, E, k, N = 4096, 128, 8, 1024
+    gen = torch.Generator().manual_seed(8)
+    router = torch.randn((d, E), generator=gen) * d ** -0.5
+    router[:, 1] = router[:, 0] = router[:, 0] * 3
+    x = torch.randn((N, d), generator=gen).to(torch.bfloat16)
+    params = {"router": router}
+    _, ids_cpu, _, _ = moe._route(params, x, E, k)
+    gates, ids, _, _ = moe._route({"router": router.to(dev)}, x.to(dev), E, k)
+    ids = ids.cpu()
+    for name, got in (("CPU", ids_cpu), ("card", ids)):
+        both = (got == 0).any(dim=1) & (got == 1).any(dim=1)
+        pos0 = (got == 0).int().argmax(dim=1)
+        pos1 = (got == 1).int().argmax(dim=1)
+        require(int(both.sum()) > N // 4, f"ties: experts 0 and 1 chosen "
+                f"together for only {int(both.sum())} tokens on the {name}")
+        require(bool((pos1[both] == pos0[both] + 1).all()),
+                f"ties: expert 1 before expert 0 on the {name}")
+    probs = torch.softmax((x.to(dev) @ router.to(dev).to(torch.bfloat16)
+                           ).float(), dim=-1)
+    chosen = probs.gather(1, ids.to(dev)).cpu()
+    tied = chosen[:, 1:] == chosen[:, :-1]
+    require(bool((ids[:, 1:][tied] > ids[:, :-1][tied]).all()),
+            "ties: equal probabilities chosen out of expert order on the card")
+    cpu_probs = torch.softmax((x @ router.to(torch.bfloat16)).float(), dim=-1)
+    gap = pick_gap(ids, cpu_probs)
+    require(gap <= ROUTE_GAP, f"ties: a card pick {gap:.4f} off the CPU's")
+    same = int((ids == ids_cpu).all(dim=1).sum())
+    print(f"  router ties (d {d}, {E} experts, top {k}, {N} tokens, columns "
+          f"0 and 1 equal): experts 0 and 1 chosen together for "
+          f"{int(both.sum())} tokens, 0 first on the card and on the CPU; "
+          f"{int(tied.sum())} equal adjacent picks on the card, all in "
+          f"expert order; {same} of {N} tokens pick as on the CPU, the rest "
+          f"within {gap:.4f}")
+
+
+def run_lm_families(dev, smi: str) -> None:
+    """Phase 8: the smoke configs of the four families card against CPU and
+    the tie case, then zamba2-7b and rwkv6-3b at full width and depth, and
+    qwen3-moe-235b-a22b and dbrx-132b at full width, cut in depth; no
+    kernel of K1-K7 launches on this path."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    check_lm_smoke(dev, LM_FAMILY_ARCHS)
+    check_router_ties(dev)
+    for arch in ("zamba2_7b", "rwkv6_3b", "qwen3_moe_235b_a22b",
+                 "dbrx_132b"):
+        cfg = get_config(arch)
+        if arch in LM_FAMILY_DEPTH:
+            print(f"  reduced: {cfg.name} depth {cfg.n_layers} -> "
+                  f"{LM_FAMILY_DEPTH[arch]} layers (one card holds the fp32 "
+                  f"params and the engine's bf16 copy of no more; the cut "
+                  f"layers stand for pipeline stages on further cards); no "
+                  f"width cut")
+            cfg = dataclasses.replace(cfg, n_layers=LM_FAMILY_DEPTH[arch])
+        t0 = time.perf_counter()
+        serve_full_width(cfg, dev, smi, max_seq=128, n_requests=8,
+                         prompt_len=16, new_tokens=16, time_fp32=False)
+        print(f"  {cfg.name}: {time.perf_counter() - t0:.1f} s")
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    launched = {k: n for k, n in ops.launch_counts().items() if n}
+    require(not launched, f"the LM families' path launched {launched}")
+    print("  kernel launches on the LM families' path: none of K1-K7")
 
 
 # ---------------------------------------------------------------------------
@@ -3525,6 +4030,9 @@ def main() -> int:
 
     with phase("7. LM serving"):
         run_lm_path(dev, smi)
+
+    with phase("8. LM families: MoE, hybrid and RWKV-6"):
+        run_lm_families(dev, smi)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

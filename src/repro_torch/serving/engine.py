@@ -8,17 +8,27 @@ planner with it (paper §4.1 re-optimization) and reports when the physical
 plan would change.
 
 A request's tokens depend on its prompt alone, never on what else shares
-the batch: admission resets the slot's position to 0, and the prompt is
-teacher-forced through ``decode_step`` on that slot's rows of the cache
-only, so no other slot's K/V or position moves. (The reference engine
-advances and writes every slot while it admits one, and never resets a
-reused slot; see ``ROADMAP.md`` §3.) A request that would write past
-``max_seq`` is refused at ``submit``.
+the batch: admission zeros the slot's rows of every cache leaf (K/V, the
+recurrent states and conv tails, the hybrid's attention rows), so a new
+request starts from the zero state ``forward`` assumes, resets the slot's
+position to 0, and teacher-forces the prompt through ``decode_step`` on
+that slot's rows of the cache only, so no other slot's state or position
+moves. (The reference engine advances and writes every slot while it
+admits one, and never resets a reused slot; see ``ROADMAP.md`` §3.) A
+request that would write past ``max_seq`` is refused at ``submit``.
 
-The engine keeps one bf16 copy of the weights on its device
-(``lm.cast_params``): every use casts a weight to bf16 first, so the copy
-gives the same bits as casting at every step, and a decode step reads half
-the bytes.
+For the MoE families the guarantee holds while no assignment is dropped:
+the experts' slots are shared by the batch. A token picks an expert at
+most once, so a decode step gives an expert at most ``max_batch``
+assignments, against a capacity of ``moe.moe_capacity(max_batch *
+top_k, n_experts)``, at least 8: with ``max_batch`` <= 8 (or any batch
+within that capacity) nothing is dropped. ``dropped_decode_calls`` counts
+the decode calls in which some layer dropped an assignment.
+
+The engine keeps one copy of the weights on its device
+(``lm.cast_params``): bf16 but for the few leaves the reference reads in
+f32. Every use casts any other weight to bf16 first, so the copy gives the
+same bits as casting at every step, and a decode step reads half the bytes.
 """
 
 from __future__ import annotations
@@ -59,6 +69,9 @@ class ServeEngine:
         # FIFO admission queue; popleft is O(1) under deep backlogs.
         self.queue: Deque[Request] = collections.deque()
         self._next: Dict[int, int] = {}       # slot -> token it feeds next
+        # decode calls that dropped an MoE assignment (a device counter)
+        self._dropped = torch.zeros((), dtype=torch.int64,
+                                    device=self.device)
         self.replan_events: List[str] = []
 
     # -- queueing -------------------------------------------------------------
@@ -74,8 +87,20 @@ class ServeEngine:
         self.queue.append(req)
 
     def _decode(self, tokens, cache):
-        return lm.decode_step(self.weights, self.cfg, self.plan, self.mesh,
-                              tokens, cache)
+        if not self.cfg.is_moe:
+            return lm.decode_step(self.weights, self.cfg, self.plan,
+                                  self.mesh, tokens, cache)
+        aux: List = []
+        out = lm.decode_step(self.weights, self.cfg, self.plan, self.mesh,
+                             tokens, cache, moe_aux=aux)
+        self._dropped += (torch.stack([a.dropped for a in aux]) > 0).any()
+        return out
+
+    @property
+    def dropped_decode_calls(self) -> int:
+        """Decode calls (batched steps and admission's per-slot steps) in
+        which some MoE layer dropped an assignment; 0 for other families."""
+        return int(self._dropped)
 
     def _admit(self) -> None:
         for i, slot in enumerate(self.slots):
@@ -86,14 +111,18 @@ class ServeEngine:
                 self._next[i] = req.prompt[-1]
 
     def _prefill_slot(self, i: int, tokens: List[int]) -> None:
-        """Reset slot ``i`` and teacher-force ``tokens`` through decode steps
-        on its rows of the cache alone (views, written in place)."""
+        """Zero slot ``i``'s state, reset its position and teacher-force
+        ``tokens`` through decode steps on its rows of the cache alone
+        (views, written in place). Every cache leaf but ``pos`` has the
+        batch on axis 1."""
+        for name, leaf in self.cache.items():
+            if name != "pos":
+                leaf[:, i].zero_()
         self.cache["pos"][i] = 0
         if not tokens:
             return
-        view = {"k": self.cache["k"][:, i:i + 1],
-                "v": self.cache["v"][:, i:i + 1],
-                "pos": self.cache["pos"][i:i + 1]}
+        view = {name: leaf[i:i + 1] if name == "pos" else leaf[:, i:i + 1]
+                for name, leaf in self.cache.items()}
         feed = torch.tensor(tokens, dtype=torch.int32, device=self.device)
         for t in range(len(tokens)):
             _, view = self._decode(feed[t:t + 1, None], view)

@@ -711,3 +711,17 @@ def test_lm_smoke_configs_on_the_card_equal_the_cpu(cuda):
     ops.reset_launch_counts()
     cs.check_lm_smoke(cuda)
     assert not any(ops.launch_counts().values())
+
+
+def test_lm_family_smoke_configs_on_the_card_equal_the_cpu(cuda):
+    """``chip_smoke.py`` phase 8a: the smoke configs of the MoE, hybrid and
+    RWKV-6 families on the card against the CPU on the CPU's router
+    choices (moe_load and moe_dropped equal, the card's own picks within
+    2^-5), teacher-forced decode against forward, and router ties taken
+    in expert order on both devices."""
+    from repro_torch.kernels import ops
+    cs = _chip_smoke_by_name()
+    ops.reset_launch_counts()
+    cs.check_lm_smoke(cuda, cs.LM_FAMILY_ARCHS)
+    cs.check_router_ties(cuda)
+    assert not any(ops.launch_counts().values())
