@@ -162,7 +162,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    run again on an f32 twin of the same code and weights), no decode call
    dropping an MoE assignment, and the readings: the decode step from the
    engine's copy, tokens/s, one prefill at B = 8, S = 512 (with the MoE
-   loads and dropped share) and the peak memory, each beside its bound.
+   loads and dropped share) and the peak memory, each beside its bound;
+9. training, launch counts set to 0 just before and required to stay 0:
+   the smoke configs of tinyllama_1_1b, musicgen_large,
+   qwen3_moe_235b_a22b, zamba2_7b and rwkv6_3b at their remat policy on the
+   card against the port's CPU run on the same params, batch and routing
+   (the loss, every gradient leaf, one train step's params and optimizer
+   state); tinyllama-1.1b at full width and depth, 20 AdamW steps at B 4 x
+   S 2048, and qwen3-moe-235b-a22b at full width and 2 of 94 layers
+   ("reduced:" line), 5 Adafactor steps at B 4 x S 512: a finite loss
+   every step, the last below the first, the MoE loads and dropped share,
+   and the readings (the step by events, one step's device busy time,
+   idle share and activities, tokens/s, peak memory beside its reckoning)
+   beside the bound; then ``python -m repro_torch.examples.train_lm
+   --steps 300`` (its ``main``) must print LEARNING, and a resumed run from
+   its checkpoint at 100 must equal its checkpoint at 200 (rtol and atol
+   2e-4), with the save and restore times.
 
 With ``--save-inputs PATH`` it saves the inputs at which it timed the
 bitonic sort, the bloom build and key_range, for
@@ -3361,12 +3376,12 @@ def routing_tap(record: list | None = None, force: list | None = None):
         vals, own = orig(probs, k)
         stats["calls"] += 1
         if record is not None:
-            record.append((own, probs))
+            record.append((own, probs.detach()))
         if force is None:
             return vals, own
         require(bool(queue), "more router calls than recorded ones")
         ids, src = queue.pop(0)
-        gap = pick_gap(own, src)
+        gap = pick_gap(own, src.detach())
         require(gap <= ROUTE_GAP, f"a router pick {gap:.4f} off the "
                 f"recorded one, beyond {ROUTE_GAP}")
         stats["differed"] += int((own.cpu() != ids.cpu()).any(dim=1).sum())
@@ -3875,6 +3890,431 @@ def run_lm_families(dev, smi: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phase 9: training
+# ---------------------------------------------------------------------------
+
+TRAIN_SMOKE_ARCHS = ("tinyllama_1_1b", "musicgen_large",
+                     "qwen3_moe_235b_a22b", "zamba2_7b", "rwkv6_3b")
+#: The card against the port's CPU run on the same params, batch and
+#: routing, as the CPU tests hold the port's backward to jax.grad: the
+#: loss within rtol 2^-8, each gradient leaf (and each optimizer state leaf
+#: after a train step) within a relative L2 error of 2^-4; the params after
+#: the step as ``step_gap`` says.
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 2 ** -8, 2 ** -4
+#: tinyllama-1.1b's training cell: AdamW, B 4 x S 2048, 20 steps.
+TRAIN_DENSE = dict(batch=4, seq=2048, steps=20, lr=1e-3, warmup=5)
+#: qwen3-moe-235b-a22b's: Adafactor at 2 of its 94 layers, B 4 x S 512.
+TRAIN_MOE = dict(batch=4, seq=512, steps=5, layers=2)
+#: The train_lm example's checkpoints, under the checkout (build/ is
+#: ignored by git), removed after phase 9d.
+TRAIN_CKPT = ROOT / "build" / "train_lm_ckpt"
+
+
+def rel_l2(a, b) -> float:
+    """||a - b|| / ||b|| in float64 on the host."""
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    den = float(b.norm())
+    return float((a - b).norm()) / den if den else float((a - b).norm())
+
+
+def loss_and_grads(params, cfg, plan, batch):
+    """train_loss and its gradients with respect to every param leaf, in
+    leaf order, through autograd (the config's remat policy)."""
+    import torch
+
+    from repro_torch.models import lm
+    from repro_torch.training.tree import tree_leaves, tree_map
+    work = tree_map(lambda t: t.detach().requires_grad_(), params)
+    loss, metrics = lm.train_loss(work, cfg, plan, None, batch)
+    grads = torch.autograd.grad(loss, tree_leaves(work))
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+
+
+def step_gap(p_d, p_c, before, ocfg) -> tuple[float, float]:
+    """One train step's params on the card against the CPU's, as
+    tests/test_torch_train_grads.py holds the port's step to the
+    reference's: each within twice the larger of lr and the CPU's own step
+    of it (its update but the weight decay), plus 2^-8 of that, and a mean
+    difference of at most lr / 8. (At step 1 AdamW moves each weight by lr
+    times the sign of its gradient, so a gradient near 0 may flip between
+    two numeric paths and move a weight by 2 lr.) Returns the largest and
+    the mean difference, in units of lr."""
+    lr, worst, total, count = ocfg.lr, 0.0, 0.0, 0
+    for d, c, p0 in zip(p_d, p_c, before):
+        diff = (d.cpu() - c).abs()
+        size = (c - (1 - lr * ocfg.weight_decay) * p0).abs()
+        require(bool((diff <= 2 * size.clamp(min=lr)
+                      * (1 + 2 ** -8)).all()),
+                "a param after one train step lies beyond twice its step "
+                "from the CPU's")
+        worst = max(worst, float(diff.max()) / lr)
+        total += float(diff.double().sum())
+        count += diff.numel()
+    require(total / count <= lr / 8, f"params after one train step differ "
+            f"by {total / count / lr:.4f} lr on average, beyond 1/8")
+    return worst, total / count / lr
+
+
+def check_train_smoke(dev) -> None:
+    """Phase 9a. Each training smoke config on the card against the port's
+    CPU run on the same params and batch (``batch_for_step`` on each
+    device: the same tokens) and the CPU's router choices, at the config's
+    remat policy: the loss, every gradient leaf, and one ``make_train_step``
+    step's update and optimizer state (the config's optimizer)."""
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.relshard import plan_model
+    from repro_torch.models import lm
+    from repro_torch.models.config import SHAPE_BY_NAME
+    from repro_torch.training.data import DataConfig, batch_for_step
+    from repro_torch.training.optimizer import OptConfig, init_opt_state
+    from repro_torch.training.train_loop import make_train_step
+    from repro_torch.training.tree import tree_leaves
+    cpu = torch.device("cpu")
+    for i, arch in enumerate(TRAIN_SMOKE_ARCHS):
+        cfg = get_smoke_config(arch)
+        plan = plan_model(cfg, LM_MESH, SHAPE_BY_NAME["train_4k"],
+                          fsdp=False)
+        host = lm.init_params(cfg, seed=i, device=cpu)
+        params = lm.params_from_numpy(lm.params_to_numpy(host), dev)
+        dc = DataConfig(cfg.vocab, 64, 2, i, cfg.n_cond_tokens, cfg.d_model)
+        batch_cpu, batch = batch_for_step(dc, 0, cpu), batch_for_step(dc, 0,
+                                                                      dev)
+        require(all(torch.equal(batch[k].cpu(), batch_cpu[k])
+                    for k in batch_cpu), f"{arch}: the batch differs "
+                f"between the card and the CPU")
+        rec = []
+        with routing_tap(record=rec):
+            loss_c, met_c, grads_c = loss_and_grads(host, cfg, plan,
+                                                    batch_cpu)
+        with routing_tap(force=rec) as routed:
+            loss_d, met_d, grads_d = loss_and_grads(params, cfg, plan, batch)
+        require(bool(torch.isfinite(loss_d)), f"{arch}: loss not finite")
+        require(abs(float(loss_d) - float(loss_c))
+                <= TRAIN_LOSS_RTOL * abs(float(loss_c)),
+                f"{arch}: loss {float(loss_d):.6f} on the card against "
+                f"{float(loss_c):.6f} on the CPU")
+        g_err = max(rel_l2(d, c) for d, c in zip(grads_d, grads_c))
+        require(g_err <= TRAIN_GRAD_RTOL, f"{arch}: a gradient leaf "
+                f"{g_err:.4f} off the CPU's (relative L2)")
+        if cfg.is_moe:
+            require(torch.equal(met_d["moe_load"].cpu(), met_c["moe_load"]),
+                    f"{arch}: moe_load, card vs CPU")
+
+        ocfg = OptConfig(name=cfg.optimizer, lr=1e-3, warmup_steps=1)
+        before = [t.clone() for t in tree_leaves(host)]
+        sides = []
+        rec = []
+        for p, b, tap in ((host, batch_cpu, routing_tap(record=rec)),
+                          (params, batch, None)):
+            state = init_opt_state(ocfg, p)
+            step = make_train_step(cfg, plan, None, ocfg)
+            with tap if tap is not None else routing_tap(force=rec):
+                p, state, m = step(p, state, b)
+            sides.append((tree_leaves(p), tree_leaves(state), m))
+        (p_c, s_c, m_c), (p_d, s_d, m_d) = sides
+        u_max, u_mean = step_gap(p_d, p_c, before, ocfg)
+        s_err = max(rel_l2(d, c) for d, c in zip(s_d, s_c)
+                    if c.is_floating_point())
+        require(s_err <= TRAIN_GRAD_RTOL, f"{arch}: one train step's "
+                f"optimizer state {s_err:.4f} off the CPU's (relative L2)")
+        require(float(m_d["lr"]) == float(m_c["lr"]),
+                f"{arch}: the step's lr differs")
+        print(f"  smoke {arch} ({cfg.remat_policy} remat, "
+              f"{cfg.optimizer}): loss {float(loss_d):.5f} card, "
+              f"{float(loss_c):.5f} CPU; largest relative L2 card vs CPU: "
+              f"gradient leaf {g_err:.4f}, optimizer state after one step "
+              f"{s_err:.4f}; params after it at most {u_max:.3f} lr apart, "
+              f"{u_mean:.4f} lr on average"
+              + (f"; moe_load equal; {routed['differed']} token-layers "
+                 f"picked otherwise on the card, within {ROUTE_GAP}"
+                 if cfg.is_moe else ""))
+
+
+def device_pass(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler`` recording the device's
+    activities alone (a training step makes tens of thousands, and the
+    host-side records would take longer to process than the step): the
+    device's busy time (the union of its activities), its idle share of the
+    call's wall time, its activities and the kernels that take the most
+    device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            spans.append((e.time_range.start, e.time_range.end))
+            n, us = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    require(bool(spans), "the profiler recorded no device time")
+    busy = union_us(spans)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:4]
+    return dict(wall_ms=wall_us / 1e3, busy_ms=busy / 1e3,
+                idle=1 - busy / wall_us, activities=len(spans),
+                top=", ".join(f"{name[:48]} {us / 1e3:.1f} (x{n})"
+                              for name, (n, us) in top))
+
+
+def matmul_params(cfg, params) -> tuple[float, float]:
+    """(all params, the params a token's forward multiplies by): every
+    product weight and the head, an MoE token's experts at top_k of
+    n_experts; the embedding table is a lookup."""
+    n_all = sum(t.numel() for t in tree_leaves(params))
+    n_active = weight_flops(params["blocks"], cfg.top_k
+                            / max(cfg.n_experts, 1)) / 2
+    head = params["embed"] if cfg.tie_embeddings else params["head"]
+    return n_all, n_active + head["table"].numel()
+
+
+def train_full_width(cfg, dev, smi: str, ocfg, batch: int, seq: int,
+                     steps: int, state_bytes: int, reckoned_gb: float
+                     ) -> None:
+    """Phases 9b and 9c. ``steps`` steps of ``make_train_step`` from random
+    params (seed 0) on ``batch_for_step`` data: a finite loss at every step
+    and the last below the first; the step by CUDA events (the median of
+    the steps after the first two), one more step under the profiler, the
+    tokens a second and the peak memory, beside the step's bound: 6 N T
+    FLOPs over the bf16 peak (N the params a token multiplies by), plus
+    the optimizer's bytes, ``state_bytes`` a param, over the memory rate."""
+    import torch
+
+    from repro_torch.core.relshard import plan_model
+    from repro_torch.models import lm
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.training.data import DataConfig, batch_for_step
+    from repro_torch.training.optimizer import init_opt_state
+    from repro_torch.training.train_loop import make_train_step
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=0, device=dev)
+    state = init_opt_state(ocfg, params)
+    n_all, n_active = matmul_params(cfg, params)
+    plan = plan_model(cfg, LM_MESH, ShapeConfig("train", seq, batch, "train"),
+                      fsdp=False)
+    step = make_train_step(cfg, plan, None, ocfg)
+    dc = DataConfig(cfg.vocab, seq, batch, 0, cfg.n_cond_tokens, cfg.d_model)
+    print(f"  {cfg.name} ({cfg.family.value}): {cfg.n_layers} layers, d "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.kv_heads} heads, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}"
+          + (f", {cfg.n_experts} experts top-{cfg.top_k}" if cfg.is_moe
+             else "")
+          + f"; {n_all / 1e9:.3f} B params ({n_active / 1e9:.3f} B "
+          f"multiplied a token); {ocfg.name}, lr {ocfg.lr}, warm-up "
+          f"{ocfg.warmup_steps}, remat {cfg.remat_policy}, B {batch} x S "
+          f"{seq}; params and state built in {time.perf_counter() - t0:.1f} s")
+
+    losses, metrics = [], None
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)] \
+        if cuda else []
+    t0 = time.perf_counter()
+    if cuda:
+        marks[0].record()
+    for i in range(steps):
+        params, state, metrics = step(params, state,
+                                      batch_for_step(dc, i, dev))
+        losses.append(metrics["loss"])
+        if cuda:
+            marks[i + 1].record()
+    synchronize(dev)
+    wall = time.perf_counter() - t0
+    losses = torch.stack(losses).cpu()
+    require(bool(torch.isfinite(losses).all()),
+            f"{cfg.name}: a loss is not finite: {losses.tolist()}")
+    require(float(losses[-1]) < float(losses[0]),
+            f"{cfg.name}: the loss did not fall: {losses.tolist()}")
+    times = sorted(a.elapsed_time(b) for a, b in zip(marks[2:-1], marks[3:])) \
+        if cuda else [wall * 1e3 / steps]
+    ms = times[len(times) // 2]
+    prof = device_pass(lambda: step(params, state,
+                                    batch_for_step(dc, steps, dev))) \
+        if cuda else None
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    flops = 6.0 * n_active * batch * seq
+    b_flops = flops / PEAK_BF16_FLOPS_PER_S * 1e3
+    b_bytes = state_bytes * n_all / PEAK_BYTES_PER_S * 1e3
+    print(f"  {cfg.name}: loss by step "
+          + " ".join(f"{x:.3f}" for x in losses.tolist())
+          + f"; grad_norm {float(metrics['grad_norm']):.3f}, lr "
+          f"{float(metrics['lr']):.2e} at the last step; {steps} steps in "
+          f"{wall:.1f} s")
+    if cfg.is_moe:
+        load = metrics["moe_load"].float()
+        print(f"  {cfg.name}: moe_dropped {float(metrics['moe_dropped']):.4f}"
+              f" at the last step; load a layer across experts "
+              f"min/median/max "
+              + ", ".join(f"{int(lo.min())}/{int(lo.median())}/"
+                          f"{int(lo.max())}" for lo in load)
+              + f" of {batch * seq * cfg.top_k} assignments")
+    print(f"  {cfg.name} readings ({smi}):")
+    print(f"    train step: {ms:.1f} ms by events (median of steps 3-{steps};"
+          f" range {times[0]:.1f}-{times[-1]:.1f}); "
+          f"{batch * seq / ms * 1e3:.0f} tokens/s; bound "
+          f"{b_flops + b_bytes:.1f} ms ({flops / 1e12:.1f} TFLOP over "
+          f"{PEAK_BF16_FLOPS_PER_S:.3g} FLOP/s bf16 = {b_flops:.1f} ms, plus "
+          f"{state_bytes} B x {n_all / 1e9:.2f} B params over "
+          f"{PEAK_BYTES_PER_S:.3g} B/s = {b_bytes:.1f} ms)")
+    if prof is not None:
+        print(f"    one step under the profiler (device activities only): "
+              f"wall {prof['wall_ms']:.1f} ms, device busy "
+              f"{prof['busy_ms']:.1f} ms (idle share {prof['idle']:.3f}), "
+              f"{prof['activities']} device activities; device ms by kernel: "
+              f"{prof['top']}")
+    print(f"    peak memory allocated: {peak / 1e9:.1f} GB "
+          f"({peak / 2 ** 30:.2f} GiB), reckoned {reckoned_gb:.1f} GB")
+    del params, state, metrics
+    if cuda:
+        torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def timed_checkpoints(log: list):
+    """Record (what, seconds) for every ``save`` and ``restore`` that the
+    train loop makes."""
+    from repro_torch.training import train_loop
+    mod = train_loop.ckpt_mod
+    saved = mod.save, mod.restore
+
+    def timed(name, fn):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            log.append((name, time.perf_counter() - t0))
+            return out
+        return call
+    mod.save, mod.restore = timed("save", saved[0]), timed("restore",
+                                                           saved[1])
+    try:
+        yield log
+    finally:
+        mod.save, mod.restore = saved
+
+
+def train_example_and_restart(dev, steps: int = 300, every: int = 100
+                              ) -> None:
+    """Phase 9d. ``python -m repro_torch.examples.train_lm --steps 300``
+    (its ``main``, on ``dev``, checkpointing every ``every`` steps) must
+    print LEARNING, the reference script's own criterion. Then the same
+    model resumes from its checkpoint at ``every`` and trains to
+    ``2 * every``: its params and optimizer state must equal the first
+    run's checkpoint at ``2 * every`` within the reference test's rtol and
+    atol 2e-4."""
+    import io
+    import shutil
+
+    import torch
+
+    from repro_torch.examples import train_lm
+    from repro_torch.training import checkpoint as ck
+    from repro_torch.training.tree import tree_leaves
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    full_dir, resume_dir = TRAIN_CKPT / "example", TRAIN_CKPT / "restart"
+    out = io.StringIO()
+    log = []
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), timed_checkpoints(log):
+        train_lm.main(["--steps", str(steps), "--ckpt", str(full_dir),
+                       "--device", str(dev)])
+    text = out.getvalue()
+    print("\n".join(f"    | {line}" for line in text.splitlines()))
+    require("LEARNING" in text, "train_lm did not print LEARNING")
+    print(f"  train_lm --steps {steps}: LEARNING in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    name = f"step_{every:08d}"
+    shutil.copytree(full_dir / name, resume_dir / name)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), timed_checkpoints(log):
+        resumed = train_lm.main(["--steps", str(2 * every), "--ckpt",
+                                 str(resume_dir), "--device", str(dev)])
+    require(f"[train] resumed from step {every}" in out.getvalue(),
+            "the second run did not resume")
+    state = {"params": resumed["params"], "opt": resumed["opt_state"]}
+    full, _ = ck.restore(str(full_dir), 2 * every, state)
+    worst = 0.0
+    for a, b in zip(tree_leaves(state), tree_leaves(full)):
+        err = (a.double() - b.double()).abs()
+        require(bool((err <= 2e-4 + 2e-4 * b.double().abs()).all()),
+                "the resumed run differs from the full run beyond rtol "
+                "2e-4, atol 2e-4")
+        worst = max(worst, float(err.max()))
+    saves = [s for what, s in log if what == "save"]
+    restores = [s for what, s in log if what == "restore"]
+    n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(state))
+    print(f"  restart: from the checkpoint at {every} to {2 * every}, params "
+          f"and optimizer state within {worst:.2e} of the first run's at "
+          f"{2 * every} (rtol/atol 2e-4); a checkpoint of "
+          f"{n_bytes / 1e9:.2f} GB saved in "
+          + ", ".join(f"{s:.2f}" for s in saves) + " s, restored in "
+          + ", ".join(f"{s:.2f}" for s in restores) + " s")
+    del resumed, state, full
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def run_training(dev, smi: str) -> None:
+    """Phase 9: the training smoke configs card against CPU, tinyllama-1.1b
+    at full width and depth with AdamW, qwen3-moe at full width with
+    Adafactor at 2 of 94 layers, and the train_lm example with a restart;
+    no kernel of K1-K7 launches on this path."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.training.optimizer import OptConfig
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    check_train_smoke(dev)
+    print(f"  9a: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    cfg = get_config("tinyllama_1_1b")
+    d = TRAIN_DENSE
+    n = cfg.param_count()
+    train_full_width(
+        cfg, dev, smi, OptConfig(name="adamw", lr=d["lr"],
+                                 warmup_steps=d["warmup"]),
+        d["batch"], d["seq"], d["steps"], state_bytes=28,
+        reckoned_gb=16 * n / 1e9 + 9.0)
+    print(f"  9b: {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+
+    t0 = time.perf_counter()
+    m = TRAIN_MOE
+    cfg = get_config("qwen3_moe_235b_a22b")
+    print(f"  reduced: {cfg.name} depth {cfg.n_layers} -> {m['layers']} "
+          f"layers (one card holds the fp32 params and grads of no more; "
+          f"the cut layers stand for pipeline stages on further cards); no "
+          f"width cut")
+    cfg = dataclasses.replace(cfg, n_layers=m["layers"])
+    n = cfg.param_count()
+    train_full_width(cfg, dev, smi, OptConfig(name=cfg.optimizer),
+                     m["batch"], m["seq"], m["steps"], state_bytes=12,
+                     reckoned_gb=8 * n / 1e9 + 16.0)
+    print(f"  9c: {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+
+    t0 = time.perf_counter()
+    train_example_and_restart(dev)
+    print(f"  9d: {time.perf_counter() - t0:.1f} s")
+    launched = {k: c for k, c in ops.launch_counts().items() if c}
+    require(not launched, f"the training path launched {launched}")
+    print("  kernel launches on the training path: none of K1-K7")
+
+
+# ---------------------------------------------------------------------------
 
 
 def ptxas_usage(report: str):
@@ -4033,6 +4473,9 @@ def main() -> int:
 
     with phase("8. LM families: MoE, hybrid and RWKV-6"):
         run_lm_families(dev, smi)
+
+    with phase("9. training"):
+        run_training(dev, smi)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

@@ -89,13 +89,37 @@ def mlp_init(gen: torch.Generator, d: int, ff: int, device,
             for name, shape in names}
 
 
+def _sigmoid(x):
+    return torch.reciprocal(1 + torch.exp(-x))
+
+
+class _SiLU(torch.autograd.Function):
+    """silu with the gradient XLA computes for ``jax.nn.silu``, each step
+    rounded to x's dtype: g * s + (x * g) * (s * (1 - s)), s = sigmoid(x).
+    Autograd's chain through ``exp`` and ``reciprocal`` rounds elsewhere
+    and moves the recurrent families' gradients by several bf16 steps."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return x * _sigmoid(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        s = _sigmoid(x)
+        return g * s + (x * g) * (s * (1 - s))
+
+
 def silu(x):
     """x * sigmoid(x), the sigmoid taken as 1 / (1 + exp(-x)) with each step
     rounded to x's dtype: the bits jax.nn.silu gives in bf16 on the CPU. A
     fused ``F.silu`` rounds once, which differs from it by a bf16 step in
     about 40% of normally spread inputs, and those steps add up over the
-    recurrent families' layers."""
-    return x * torch.reciprocal(1 + torch.exp(-x))
+    recurrent families' layers. Its gradient is ``_SiLU``'s."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _SiLU.apply(x)
+    return x * _sigmoid(x)
 
 
 def gelu(x):

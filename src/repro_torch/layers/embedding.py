@@ -12,6 +12,7 @@ the local take, as in the reference; the sharded paths are not ported yet
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .common import COMPUTE_DTYPE, PARAM_DTYPE, require_no_mesh
 
@@ -40,11 +41,18 @@ CE_CHUNK = 512
 def _seq_chunked(fn, h, labels):
     """Stream a per-token computation over sequence chunks of ``CE_CHUNK``
     positions, so that one (B, C, V) logits block is the only vocab-sized
-    temporary. Returns (B, S)."""
+    temporary. Returns (B, S). While autograd records a graph, each chunk
+    is checkpointed, as the reference's ``jax.checkpoint``: its logits are
+    recomputed in the backward instead of kept for every chunk."""
     S = h.shape[1]
     if S <= CE_CHUNK:
         return fn(h, labels)
-    return torch.cat([fn(h[:, i:i + CE_CHUNK], labels[:, i:i + CE_CHUNK])
+    if torch.is_grad_enabled():
+        def run(h_c, lab_c):
+            return checkpoint(fn, h_c, lab_c, use_reentrant=False)
+    else:
+        run = fn
+    return torch.cat([run(h[:, i:i + CE_CHUNK], labels[:, i:i + CE_CHUNK])
                       for i in range(0, S, CE_CHUNK)], dim=1)
 
 

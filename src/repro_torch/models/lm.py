@@ -13,6 +13,11 @@ Every entry point runs on the device its tensors live on; ``init_params``
 and ``init_cache`` build on the CUDA card unless the caller names another
 device, and raise without a card. A device mesh waits for ``ROADMAP.md``
 queue 1, item 5.
+
+Training differentiates ``train_loss`` with autograd. ``forward``
+rematerializes every block as the reference's ``_remat`` does, following
+``cfg.remat_policy``, whenever gradients are being recorded; prefill,
+decode and the engine never record any and run the blocks as they are.
 """
 
 from __future__ import annotations
@@ -21,6 +26,8 @@ from typing import Any, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..core.relshard import ShardingPlan
 from ..joins.table import resolve_device
@@ -134,9 +141,10 @@ def cast_params(params, device=None) -> Dict[str, Any]:
     """The weights as the forward and decode paths read them, on ``device``:
     every leaf cast to the compute dtype (bf16) but ``F32_LEAVES``, kept in
     fp32. Every use of any other weight casts it to bf16 first, so the copy
-    gives the same bits as casting the fp32 tree at every use."""
+    gives the same bits as casting the fp32 tree at every use. The copy is
+    detached: built from params that require grad, it records no graph."""
     def cast(tree):
-        return {k: cast(v) if isinstance(v, dict) else v.to(
+        return {k: cast(v) if isinstance(v, dict) else v.detach().to(
             device=device,
             dtype=v.dtype if k in F32_LEAVES else cm.COMPUTE_DTYPE)
             for k, v in tree.items()}
@@ -155,6 +163,46 @@ class ForwardAux(NamedTuple):
     moe_load: Optional[torch.Tensor]   # (L, E) int32 router counts
     moe_aux_loss: torch.Tensor         # scalar, mean over layers
     moe_dropped: torch.Tensor          # scalar, mean over layers
+
+
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                   torch.ops.aten.addmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The "dots" policy: keep the products' outputs, recompute the rest
+    (``jax.checkpoint_policies.checkpoint_dots``)."""
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _records_grad(tree) -> bool:
+    if isinstance(tree, dict):
+        return any(_records_grad(v) for v in tree.values())
+    if isinstance(tree, tuple):
+        return any(_records_grad(v) for v in tree)
+    return isinstance(tree, torch.Tensor) and tree.requires_grad
+
+
+def _remat(fn, policy: str):
+    """``fn`` rematerialized as the reference's ``_remat``: "none" keeps
+    every activation, "dots" keeps the products' outputs, anything else
+    ("full") keeps only the block's inputs and recomputes the block in the
+    backward. Applies only while autograd records a graph through some
+    input; otherwise ``fn`` runs as it is."""
+    if policy == "none":
+        return fn
+
+    def run(*args):
+        if not (torch.is_grad_enabled() and _records_grad(args)):
+            return fn(*args)
+        if policy == "dots":
+            return checkpoint(
+                fn, *args, use_reentrant=False,
+                context_fn=lambda: create_selective_checkpoint_contexts(
+                    _save_dots))
+        return checkpoint(fn, *args, use_reentrant=False)
+    return run
 
 
 def _dense_block(bp, x, cfg: ModelConfig, plan, positions,
@@ -227,28 +275,35 @@ def forward(params, cfg: ModelConfig, plan: ShardingPlan, mesh, tokens,
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     aux = ForwardAux(None, zero, zero)
     blocks = params["blocks"]
+    policy = cfg.remat_policy
 
     if cfg.family is Family.SSM:
+        body = _remat(lambda x, bp: _rwkv_block(bp, x, cfg), policy)
         for i in range(cfg.n_layers):
-            x = _rwkv_block(_layer(blocks, i), x, cfg)
+            x = body(x, _layer(blocks, i))
 
     elif cfg.family is Family.HYBRID:
         period = attn_period(cfg)
-        for i in range(cfg.n_layers):
-            bp = _layer(blocks, i)
+
+        def mamba_block(x, bp):
             h = cm.rmsnorm(bp["norm"], x, cfg.rms_eps)
             y, _st = ssm_mod.ssm_apply(bp["ssm"], h, n_state=cfg.ssm_state,
                                        n_heads=ssm_heads(cfg))
-            x = x + y
+            return x + y
+        body = _remat(mamba_block, policy)
+        shared = _remat(lambda x, sp: _shared_attn_block(sp, x, cfg,
+                                                         positions), policy)
+        for i in range(cfg.n_layers):
+            x = body(x, _layer(blocks, i))
             if (i + 1) % period == 0:
-                x = _shared_attn_block(params["shared_attn"], x, cfg,
-                                       positions)
+                x = shared(x, params["shared_attn"])
 
     else:
+        body = _remat(lambda x, bp: _dense_block(bp, x, cfg, plan, positions,
+                                                 lt_schedule), policy)
         auxes = []
         for i in range(cfg.n_layers):
-            x, a = _dense_block(_layer(blocks, i), x, cfg, plan, positions,
-                                lt_schedule)
+            x, a = body(x, _layer(blocks, i))
             auxes.append(a)
         if cfg.is_moe:
             aux = ForwardAux(torch.stack([a.load for a in auxes]),
@@ -266,8 +321,8 @@ def _head_params(params, cfg):
 def train_loss(params, cfg: ModelConfig, plan: ShardingPlan, mesh, batch,
                moe_aux_weight: float = 0.01, lt_schedule: bool = False):
     """batch: {"tokens": (B,S), optional "cond_emb": (B,n_cond,d)}.
-    Next-token CE over text positions. Returns (loss, metrics); the value
-    only (the backward pass is ROADMAP.md queue 1, item 4)."""
+    Next-token CE over text positions. Returns (loss, metrics); autograd
+    differentiates it (``training.train_loop.make_train_step``)."""
     tokens = batch["tokens"]
     cond = batch.get("cond_emb")
     n_cond = 0 if cond is None else cond.shape[1]

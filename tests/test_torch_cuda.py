@@ -3,8 +3,9 @@ and the main path, the text-only and skew-target suites, the skew-aware
 path, the runtime-filter path, the reordering and hypercube path, the
 query service and the nested-loop joins on the card against the same paths
 on the CPU, the distributed twins on the card (4 ranks under gloo, 1
-under NCCL) against the global view, and the dense decoder's smoke configs
-on the card against the CPU.
+under NCCL) against the global view, and the LM's smoke configs on the
+card against the CPU: forward, decode and the serving engine's paths, and
+the training step's gradients and update.
 
 Every test here is marked ``cuda`` and skips without a card. The file
 imports neither JAX nor the JAX package, and uses no fixture of
@@ -724,4 +725,17 @@ def test_lm_family_smoke_configs_on_the_card_equal_the_cpu(cuda):
     ops.reset_launch_counts()
     cs.check_lm_smoke(cuda, cs.LM_FAMILY_ARCHS)
     cs.check_router_ties(cuda)
+    assert not any(ops.launch_counts().values())
+
+
+def test_training_smoke_configs_on_the_card_equal_the_cpu(cuda):
+    """``chip_smoke.py`` phase 9a: for the smoke configs of tinyllama,
+    musicgen, qwen3-moe, zamba2 and rwkv6 at their remat policy, the loss
+    (rtol 2^-8), every gradient leaf, and one train step's update and
+    optimizer state (relative L2 2^-4) on the card equal the CPU's on the
+    same params, batch and router choices."""
+    from repro_torch.kernels import ops
+    cs = _chip_smoke_by_name()
+    ops.reset_launch_counts()
+    cs.check_train_smoke(cuda)
     assert not any(ops.launch_counts().values())

@@ -45,6 +45,26 @@ def test_port_imports_with_jax_and_repro_blocked():
     assert int(out.stdout.strip()) >= 30  # every module of both slices
 
 
+def test_training_imports_with_jax_and_repro_blocked():
+    """The training package and the example that drives it, imported in a
+    process where ``import jax`` and ``import repro`` fail."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import repro_torch.training as t\n"
+        "from repro_torch.examples import train_lm\n"
+        "print(sorted(t.__all__))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == str(sorted([
+        "latest_step", "restore", "save", "DataConfig", "batch_for_step",
+        "OptConfig", "apply_updates", "init_opt_state", "make_train_step",
+        "sharding_trees", "train"]))
+
+
 @pytest.mark.parametrize(
     "path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
     ids=lambda p: str(p.relative_to(ROOT)))
