@@ -177,7 +177,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    beside the bound; then ``python -m repro_torch.examples.train_lm
    --steps 300`` (its ``main``) must print LEARNING, and a resumed run from
    its checkpoint at 100 must equal its checkpoint at 200 (rtol and atol
-   2e-4), with the save and restore times.
+   2e-4), with the save and restore times;
+10. the sharded LM paths, four rank processes under gloo sharing the one
+   card (NCCL refuses two ranks on a card), the parent's whole tensors
+   reaching them through CUDA IPC, launch counts set to 0 just before and
+   required to stay 0: 10a, tinyllama-1.1b at full width and depth under
+   ``plan_model``'s serve plan on 2x2: an engine of 8 slots drains 8
+   requests of 8 + 16 tokens (every rank's tokens equal, and equal the
+   ``mesh=None`` engine's on the card or part at a near-tie of its
+   logits), a prefill at 8 x 512 against ``mesh=None``'s; 10b, its train
+   plan, 3 AdamW steps at B 4 x S 2048 on 2x2 and on 1x4, step 1 against
+   one ``mesh=None`` step from the same params and batch (phase 9a's
+   bounds), the 2x2 checkpoint restored bit-equal on 1x4 and on no mesh;
+   10c, qwen3-moe-235b-a22b at full width and 2 of 94 layers, expert
+   parallel on 1x4 (32 experts a rank) on the replicated path's routing:
+   at a capacity factor where neither path drops, the hidden states of a
+   prefill at 8 x 512 and 4 decode steps' logits against the replicated
+   path's, and both paths' drops at the config's factor. Across the model
+   axis's bf16 partial sums, full-depth outputs are held to the spread:
+   a mean difference within 2^-6, at most 2^-10 of the entries beyond
+   the bf16 elementwise bound, top tokens equal or near-ties. Each rank
+   prints its step by CUDA events, its collective calls and bytes by
+   kind and its peak memory; which collectives gloo ran on CUDA tensors.
 
 With ``--save-inputs PATH`` it saves the inputs at which it timed the
 bitonic sort, the bloom build and key_range, for
@@ -195,6 +216,7 @@ import argparse
 import contextlib
 import json
 import math
+import pickle
 import re
 import subprocess
 import sys
@@ -3411,6 +3433,20 @@ def dropless_moe():
         moe.moe_capacity = orig
 
 
+@contextlib.contextmanager
+def moe_factor(cf: float):
+    """The MoE layers' capacities at factor ``cf`` in place of the
+    reference's 1.5 (``moe.moe_capacity`` patched for the block)."""
+    from repro_torch.layers import moe
+    orig = moe.moe_capacity
+    moe.moe_capacity = lambda n, n_experts, factor=1.5: orig(n, n_experts,
+                                                               cf)
+    try:
+        yield
+    finally:
+        moe.moe_capacity = orig
+
+
 def decode_order(recorded: list, B: int, S: int) -> list:
     """A forward's per-layer routing of (B*S) rows, re-cut into the
     per-step, per-layer order of a teacher-forced decode of B rows."""
@@ -3438,10 +3474,10 @@ def trace_engine_routing(eng, rids) -> dict:
         finally:
             admitting["slot"] = None
 
-    def traced_decode(tokens, cache):
+    def traced_decode(tokens, cache, ctx=None):
         rec = []
         with routing_tap(record=rec):
-            out = decode(tokens, cache)
+            out = decode(tokens, cache, ctx)
         i = admitting["slot"]
         rows = {i: 0} if i is not None else {j: j for j in
                                              range(len(eng.slots))}
@@ -4317,6 +4353,799 @@ def run_training(dev, smi: str) -> None:
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the sharded LM paths, four ranks sharing the card
+# ---------------------------------------------------------------------------
+
+SHARD_WORLD = 4
+#: 10a: the engine's requests (8 prompt tokens, 16 new) and the prefill
+SHARD_PROMPT, SHARD_NEW, SHARD_SLOTS = 8, 16, 8
+SHARD_PREFILL = (8, 512)
+#: 10b: phase 9's batch; 10c: the experts' capacity factor at which
+#: neither path drops an assignment, and the decode steps
+SHARD_TRAIN = (4, 2048)
+SHARD_TRAIN_STEPS = 3
+MOE_DROPLESS_CF = 4.0
+#: the reference's capacity factor (``moe_apply``'s default)
+MOE_CF = 1.5
+MOE_DECODE_STEPS = 4
+#: the bf16 bounds the port is held to across numeric paths
+BF16_RTOL, BF16_ATOL, BF16_MEAN = 2 ** -5, 2 ** -4, 2 ** -6
+
+
+def shard_axes(data: int, model: int) -> tuple:
+    return (("data", data), ("model", model))
+
+
+def probe_collectives(mesh, device) -> dict:
+    """Which collective kinds the backend runs on tensors of ``device``:
+    each is tried once on a small tensor (every rank tries the same ones).
+    Returns {kind: ran}."""
+    import torch
+    import torch.distributed as dist
+    out = {}
+    n = mesh.size
+    x = torch.ones(n * 2, dtype=torch.float32, device=device)
+    tries = {
+        "all_gather": lambda: dist.all_gather(
+            [torch.empty_like(x) for _ in range(n)], x),
+        "all_reduce": lambda: dist.all_reduce(x.clone()),
+        "reduce_scatter": lambda: dist.reduce_scatter_tensor(
+            torch.empty(2, device=device), x.clone()),
+        "all_to_all": lambda: dist.all_to_all_single(torch.empty_like(x),
+                                                     x),
+    }
+    for kind, fn in tries.items():
+        try:
+            fn()
+            ok = True
+        except (RuntimeError, ValueError, NotImplementedError):
+            ok = False
+        # every rank must agree before the next collective is tried
+        flag = torch.tensor([int(ok)], dtype=torch.int32)
+        dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+        out[kind] = bool(flag.item())
+    return out
+
+
+def shard_mesh(axes, dev):
+    """A mesh over the rank's group, after trying each collective kind on
+    the rank's tensors: the phase needs every kind the backend runs (gloo
+    runs them on CUDA tensors by copying through host memory)."""
+    from repro_torch.models import sharding as sh
+    mesh = sh.Mesh(axes, device=dev)
+    ran = probe_collectives(mesh, dev)
+    require(all(ran.values()), "the backend refused a collective on the "
+            f"ranks' tensors: {ran}")
+    return mesh, ran
+
+
+def spread_reading(got, want, what: str) -> dict:
+    """The largest and the mean difference of ``got`` from ``want`` and
+    the entries beyond the bf16 elementwise bound."""
+    a, b = got.float().cpu(), want.float().cpu()
+    require(a.shape == b.shape, f"{what}: shapes {a.shape} and {b.shape}")
+    err = (a - b).abs()
+    return {"max_err": float(err.max()), "mean_err": float(err.mean()),
+            "beyond": int((err > BF16_ATOL + BF16_RTOL * b.abs()).sum()),
+            "entries": err.numel()}
+
+
+def within_spread(r: dict) -> bool:
+    return (r["mean_err"] <= BF16_MEAN
+            and r["beyond"] <= r["entries"] * 2 ** -10)
+
+
+def spread_close(got, want, what: str) -> dict:
+    """A sharded path's output against mesh=None's where the model axis's
+    bf16 partial sums, added in another order, move a few entries past
+    the bf16 elementwise bound: the mean difference within its 2^-6 and at
+    most 2^-10 of the entries beyond the elementwise bound. The f32 twins
+    (``twin_close``) show the same paths within the elementwise bound when
+    nothing rounds to bf16, and a planted fault (``fault_reading``) what
+    a missing all-reduce reads here. Returns ``spread_reading``'s."""
+    require(torch_isfinite(got), f"{what}: not finite")
+    r = spread_reading(got, want, what)
+    require(r["mean_err"] <= BF16_MEAN, f"{what}: mean difference "
+            f"{r['mean_err']:.5f} above {BF16_MEAN}")
+    require(within_spread(r), f"{what}: {r['beyond']} of {r['entries']} "
+            "entries beyond the bf16 elementwise bound")
+    return r
+
+
+def twin_close(got, want, what: str) -> dict:
+    """An f32 twin (every layer in f32, the same bf16 weights) of a sharded
+    output against mesh=None's f32 twin: every entry within the bf16
+    elementwise bound and the mean within 2^-6."""
+    require(torch_isfinite(got), f"{what}: not finite")
+    r = spread_reading(got, want, what)
+    require(r["beyond"] == 0 and r["mean_err"] <= BF16_MEAN,
+            f"{what}: {r['beyond']} entries beyond the bf16 elementwise "
+            f"bound, mean difference {r['mean_err']:.6f}")
+    return r
+
+
+@contextlib.contextmanager
+def planted_fault(skip: int | None = None):
+    """Count the calls of the model axis's all-reduce in the block
+    (``sharding.reduce_fwd``, Megatron's g: after attention's ``w_o``,
+    the MLP's down projection, a vocab-parallel lookup). With ``skip``, a
+    planted fault: that call (from 0) returns the rank's partial sum
+    unreduced. Yields a one-item list holding the count."""
+    from repro_torch.models import sharding as sh
+    orig, calls = sh.reduce_fwd, [0]
+
+    def reduce_fwd(x, mesh, axes):
+        calls[0] += 1
+        return x if calls[0] - 1 == skip else orig(x, mesh, axes)
+    sh.reduce_fwd = reduce_fwd
+    try:
+        yield calls
+    finally:
+        sh.reduce_fwd = orig
+
+
+def fault_reading(run, skip: int, unshard, want, what: str) -> dict:
+    """``spread_reading`` of ``run()`` with all-reduce ``skip`` missing
+    (``planted_fault``), whole by ``unshard``, against ``want``; required
+    to fail ``spread_close``."""
+    import torch
+    with torch.no_grad(), planted_fault(skip):
+        out = unshard(run())
+    r = spread_reading(out, want, what)
+    require(not within_spread(r) or not torch_isfinite(out),
+            f"{what}: with all-reduce {skip} missing the output still "
+            f"passes the spread check ({r})")
+    return {**r, "skip": skip}
+
+
+def depth_close(got, want, what: str) -> dict:
+    """``spread_close`` for logits, and each row's top token the same or a
+    near-tie in mesh=None's logits (within the bf16 elementwise bound)."""
+    out = spread_close(got, want, what)
+    a, b = got.float().cpu(), want.float().cpu()
+    top_a, top_b = a.argmax(dim=-1), b.argmax(dim=-1)
+    gap = (b.gather(-1, top_b[..., None]) - b.gather(-1, top_a[..., None])
+           ).abs()[..., 0]
+    require(bool((gap <= BF16_ATOL + BF16_RTOL * b.abs().amax(-1)).all()),
+            f"{what}: a row's top token is no near-tie of mesh=None's "
+            f"(gap {float(gap.max()):.4f})")
+    return {**out, "top_same": int((top_a == top_b).sum()),
+            "rows": top_a.numel()}
+
+
+def torch_isfinite(t) -> bool:
+    import torch
+    return bool(torch.isfinite(t).all())
+
+
+def rank_readings(mesh, dev, times: list) -> dict:
+    import torch
+    times = sorted(times)
+    return {"ms": times[len(times) // 2] if times else 0.0,
+            "calls": dict(mesh.stats.calls),
+            "bytes": dict(mesh.stats.sent_bytes),
+            "peak": (torch.cuda.max_memory_allocated(dev)
+                     if dev.type == "cuda" else 0)}
+
+
+def print_rank_readings(label: str, readings: list, what: str) -> None:
+    for r, rd in enumerate(readings):
+        print(f"    {label} rank {r}: {what} {rd['ms']:.1f} ms by events "
+              f"(median); collectives "
+              + ", ".join(f"{k} {rd['calls'][k]} calls {rd['bytes'][k]} B"
+                          for k in rd["calls"] if rd["calls"][k])
+              + f"; peak memory {rd['peak'] / 1e9:.2f} GB")
+
+
+def timed(dev, fn):
+    """(fn's result, its milliseconds between two CUDA events, or by the
+    host's clock on the CPU)."""
+    import torch
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t0) * 1e3
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def leaf_digests(tree, specs, mesh) -> list:
+    """``checkpoint.digest`` of every leaf, gathered whole, in leaf order
+    (on every rank)."""
+    from repro_torch.models import sharding as sh
+    from repro_torch.training import checkpoint as ck
+    from repro_torch.training.tree import tree_leaves
+    out = []
+    for t, s in zip(tree_leaves(tree), tree_leaves(specs)):
+        whole = sh.unshard(t.detach(), s, mesh) if mesh is not None else t
+        out.append(ck.digest(whole.cpu().numpy()))
+    return out
+
+
+def serve_requests(cfg, seed: int = 7) -> list:
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randint(1, cfg.vocab, (SHARD_PROMPT,), generator=gen
+                          ).tolist() for _ in range(SHARD_SLOTS)]
+
+
+def drain(eng, prompts, new: int, dev) -> tuple:
+    """Every prompt through the engine, ``new`` tokens each; (tokens per
+    request, each step's ms)."""
+    from repro_torch.serving.engine import Request
+    reqs = [Request(i, list(p), new) for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    times = []
+    while eng.queue or eng.occupancy():
+        _, ms = timed(dev, eng.step)
+        times.append(ms)
+        require(len(times) < 10_000, "the engine does not drain")
+    require(all(r.done and len(r.out) == new for r in reqs),
+            "a request did not complete")
+    return [r.out for r in reqs], times
+
+
+def dense_rank(rank: int, dev, cfg, params, ref: dict, out_dir: str
+               ) -> None:
+    """10a and 10b on one rank: ``params`` whole (shared with the parent),
+    ``ref`` the single-device results."""
+    import torch
+
+    from repro_torch.core.relshard import plan_model
+    from repro_torch.models import lm
+    from repro_torch.models import sharding as sh
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.training import checkpoint as ck
+    from repro_torch.training.data import DataConfig, batch_for_step
+    from repro_torch.training.optimizer import (OptConfig, init_opt_state,
+                                                opt_state_specs)
+    from repro_torch.training.train_loop import make_train_step
+    report: dict = {}
+    slots, new = len(ref["prompts"]), ref["new"]
+    max_seq = len(ref["prompts"][0]) + new
+
+    # 10a: the engine and a prefill on 2x2 under the serve plan
+    mesh, ran = shard_mesh(shard_axes(2, 2), dev)
+    report["probe"] = ran
+    shape = ShapeConfig("serve", max_seq, slots, "decode")
+    plan = plan_model(cfg, shard_axes(2, 2), shape, fsdp=False)
+    blocks = lm.shard_params(params, cfg, plan, mesh)
+    eng = ServeEngine(cfg, plan, mesh, blocks, max_batch=slots,
+                      max_seq=max_seq, device=dev)
+    del blocks
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    mesh.stats.reset()
+    outs, times = drain(eng, ref["prompts"], new, dev)
+    report["serve"] = {"tokens": outs, **rank_readings(mesh, dev, times)}
+    mesh.stats.reset()
+    with torch.no_grad():
+        logits, ms = timed(dev, lambda: lm.prefill(
+            eng.weights, cfg, plan, mesh, ref["prefill_tokens"]))
+    vocab = plan.model_axis if plan.head_strategy == "vocab_parallel" \
+        else None
+    ctx = lm.shard_ctx(plan, mesh, ref["prefill_tokens"].shape[0])
+    spec = sh.P(ctx.batch or None, vocab)
+    whole = sh.unshard(logits, spec, mesh)
+    report["prefill"] = {**depth_close(whole, ref["prefill"],
+                                       "10a prefill logits"),
+                         **rank_readings(mesh, dev, [ms])}
+    del logits, whole
+
+    # the f32 twin of that prefill, and the last all-reduce left out
+    def prefill():
+        return lm.prefill(eng.weights, cfg, plan, mesh,
+                          ref["prefill_tokens"])
+    with torch.no_grad(), compute_dtype(torch.float32), \
+            planted_fault() as n_reduce:
+        report["prefill_f32"] = twin_close(
+            sh.unshard(prefill(), spec, mesh), ref["prefill_f32"],
+            "10a prefill logits, the f32 twin")
+    report["prefill_fault"] = fault_reading(
+        prefill, n_reduce[0] - 1, lambda t: sh.unshard(t, spec, mesh),
+        ref["prefill"], "10a prefill logits")
+    del eng
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # 10b: AdamW steps on 2x2 and on 1x4 under the train plan
+    B, S, n_steps = ref["train"]
+    ocfg = OptConfig(name="adamw")
+    dc = DataConfig(cfg.vocab, S, B, 0, cfg.n_cond_tokens, cfg.d_model)
+    ckpt_dir = str(Path(out_dir) / "ckpt")
+    for data, model in ((2, 2), (1, 4)):
+        axes = shard_axes(data, model)
+        mesh = sh.Mesh(axes, device=dev)
+        plan = plan_model(cfg, axes, ShapeConfig("train", S, B, "train"))
+        specs = lm.param_specs(cfg, params, plan)
+        blocks = sh.shard_tree(params, specs, mesh)
+        state = init_opt_state(ocfg, blocks)
+        step = make_train_step(cfg, plan, mesh, ocfg)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        mesh.stats.reset()
+        losses, times = [], []
+        for i in range(n_steps):
+            (blocks, state, m), ms = timed(dev, lambda: step(
+                blocks, state, batch_for_step(dc, i, dev)))
+            losses.append(float(m["loss"]))
+            times.append(ms)
+            if i == 0:
+                worst = mean = 0.0
+                for b, a, p0, s in zip(tree_leaves(blocks),
+                                       tree_leaves(ref["after"]),
+                                       tree_leaves(params),
+                                       tree_leaves(specs)):
+                    a, p0 = sh.shard(a, s, mesh), sh.shard(p0, s, mesh)
+                    diff = (b - a).abs()
+                    size = (a - (1 - ocfg.lr * ocfg.weight_decay) * p0).abs()
+                    require(bool((diff <= 2 * size.clamp(min=ocfg.lr)
+                                  * (1 + 2 ** -8)).all()),
+                            f"10b {data}x{model}: a param after one step "
+                            "lies beyond twice its step from mesh=None's")
+                    worst = max(worst, float(diff.max()) / ocfg.lr)
+                    mean += float(diff.double().sum())
+                mean = float(sh.all_reduce_raw(
+                    mesh, torch.tensor(mean, dtype=torch.float64),
+                    mesh.axis_names)) / sum(p.numel() for p in
+                                            tree_leaves(params)) / ocfg.lr
+                require(mean <= 1 / 8, f"10b {data}x{model}: params after "
+                        f"one step differ by {mean:.4f} lr on average")
+                first = {"loss": losses[0], "worst_lr": worst,
+                         "mean_lr": mean}
+        key = f"train_{data}x{model}"
+        report[key] = {"losses": losses, **first,
+                       **rank_readings(mesh, dev, times)}
+        if (data, model) == (2, 2):
+            report["digests_2x2"] = []
+            ck.save(ckpt_dir, n_steps,
+                    {"params": blocks, "opt": state}, mesh=mesh,
+                    specs={"params": specs,
+                           "opt": opt_state_specs(ocfg, specs)},
+                    digests=report["digests_2x2"])
+        else:
+            # the 2x2 checkpoint onto this mesh's shardings
+            from repro_torch.training.train_loop import sharding_trees
+            p_sh, o_sh, _ = sharding_trees(cfg, plan, mesh, ocfg, params)
+            back, _ = ck.restore(ckpt_dir, n_steps,
+                                 {"params": blocks, "opt": state},
+                                 shardings={"params": p_sh, "opt": o_sh})
+            report["digests_1x4"] = leaf_digests(
+                back, {"params": specs,
+                       "opt": opt_state_specs(ocfg, specs)}, mesh)
+            del back
+        del blocks, state, step
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    if rank == 0:
+        with open(Path(out_dir) / "dense.pkl", "wb") as f:
+            pickle.dump(report, f)
+    gathered = [None] * SHARD_WORLD
+    import torch.distributed as dist
+    dist.all_gather_object(gathered, {k: {x: v[x] for x in ("ms", "calls",
+                                                            "bytes", "peak")}
+                                      for k, v in report.items()
+                                      if isinstance(v, dict) and "ms" in v})
+    if rank == 0:
+        with open(Path(out_dir) / "dense_ranks.pkl", "wb") as f:
+            pickle.dump(gathered, f)
+
+
+def moe_rank(rank: int, dev, cfg, weights, ref: dict, out_dir: str) -> None:
+    """10c on one rank: qwen3's bf16 ``weights`` whole (shared with the
+    parent) placed on 1x4 with expert parallelism; prefill and decode on
+    the parent's routing, at a capacity factor with no drop and at the
+    config's."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.models import lm
+    from repro_torch.models import sharding as sh
+    mesh, ran = shard_mesh(shard_axes(1, 4), dev)
+    plan = ref["plan"]
+    blocks = lm.shard_params(weights, cfg, plan, mesh)
+    m = mesh.coords["model"]
+    B, S = ref["tokens"].shape
+    n_steps = ref["steps"].shape[1]
+
+    def seq_block(t):          # this rank's tokens of a (B*S, ...) record
+        n = mesh.n(plan.model_axis)
+        return t.reshape(B, S, -1)[:, m * S // n:(m + 1) * S // n] \
+            .reshape(-1, t.shape[-1])
+    prefill_routing = [(seq_block(i), seq_block(p)) for i, p in
+                       ref["routing"]]
+    vocab = plan.model_axis if plan.head_strategy == "vocab_parallel" \
+        else None
+    report = {"probe": ran}
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    for cf in (ref["dropless_cf"], MOE_CF):
+        mesh.stats.reset()
+        # the drops at the config's factor on the path's own routing
+        tap = (routing_tap(force=prefill_routing)
+               if cf == ref["dropless_cf"] else contextlib.nullcontext())
+        with torch.no_grad(), moe_factor(cf), tap:
+            (hidden, aux), ms = timed(dev, lambda: lm.forward(
+                blocks, cfg, plan, mesh, ref["tokens"]))
+        report[f"prefill_cf{cf}"] = {"dropped": float(aux.moe_dropped),
+                                     "load": aux.moe_load.cpu(),
+                                     **rank_readings(mesh, dev, [ms])}
+        if cf == ref["dropless_cf"]:
+            ctx = lm.shard_ctx(plan, mesh, B)
+            whole = sh.unshard(hidden, sh.P(ctx.batch or None), mesh)
+            report["hidden"] = spread_close(
+                whole, ref["hidden"], "10c hidden states, expert parallel "
+                "against the replicated path (no drop)")
+            require(float(aux.moe_dropped) == 0.0, "10c: expert parallel "
+                    f"dropped {float(aux.moe_dropped)} at cf {cf}")
+        del hidden
+    # decode on the replicated path's routing (tokens whole on each rank)
+    # (every model rank routes the same tokens: each expert shard gets a
+    # copy from each, so the config's factor drops copies that the
+    # replicated path keeps)
+    cache = lm.init_cache(cfg, B, n_steps, dev, mesh=mesh, plan=plan)
+    mesh.stats.reset()
+    times, errs, aux = [], [], []
+    with torch.no_grad(), moe_factor(ref["dropless_cf"]), \
+            routing_tap(force=ref["decode_routing"]):
+        for t in range(n_steps):
+            (lg, cache), ms = timed(dev, lambda: lm.decode_step(
+                blocks, cfg, plan, mesh, ref["steps"][:, t:t + 1],
+                cache, aux, max_seq=n_steps))
+            times.append(ms)
+            whole = sh.unshard(lg, sh.P(None, vocab), mesh)
+            errs.append(depth_close(whole, ref["decode"][:, t],
+                                    f"10c decode step {t}")["max_err"])
+    require(all(float(a.dropped) == 0.0 for a in aux),
+            "10c: an expert-parallel decode step dropped an assignment")
+    report["decode"] = {"max_err": max(errs),
+                        **rank_readings(mesh, dev, times)}
+    del cache
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    # the f32 twin at the dropless factor, on the f32 twin's routing
+    with torch.no_grad(), compute_dtype(torch.float32), \
+            moe_factor(ref["dropless_cf"]), routing_tap(
+                force=[(seq_block(i), seq_block(p))
+                       for i, p in ref["routing_f32"]]):
+        hidden, _ = lm.forward(blocks, cfg, plan, mesh, ref["tokens"])
+    report["hidden_f32"] = twin_close(
+        sh.unshard(hidden, sh.P(ctx.batch or None), mesh),
+        ref["hidden_f32"], "10c hidden states, the f32 twin")
+    del hidden
+    gathered = [None] * SHARD_WORLD
+    dist.all_gather_object(gathered, report)
+    if rank == 0:
+        with open(Path(out_dir) / "moe.pkl", "wb") as f:
+            pickle.dump(gathered, f)
+
+
+def shard_rank(rank: int, world: int, backend: str, store: str,
+               out_dir: str, device: str, body: str, args: tuple) -> None:
+    """One rank process of phase 10: joins the group through a
+    ``FileStore`` and runs ``body`` ("dense" or "moe")."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    else:
+        torch.set_num_threads(1)
+    from repro_torch.kernels import ops
+    dist.init_process_group(backend, store=dist.FileStore(store, world),
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=600))
+    try:
+        ops.reset_launch_counts()
+        {"dense": dense_rank, "moe": moe_rank}[body](rank, dev, *args,
+                                                      out_dir)
+        counts = [None] * world
+        dist.all_gather_object(counts, ops.launch_counts())
+        if rank == 0:
+            with open(Path(out_dir) / f"{body}_launches.pkl", "wb") as f:
+                pickle.dump(counts, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+        for a in args:
+            if isinstance(a, dict):
+                a.clear()
+
+
+def spawn_shards(body: str, args: tuple, device: str, tmp: str) -> None:
+    """The ranks of ``body``; none may launch a kernel of K1-K7 (each
+    rank's launch counts, read where its body ends)."""
+    import torch.multiprocessing as mp
+    mp.start_processes(shard_rank, nprocs=SHARD_WORLD, start_method="spawn",
+                       args=(SHARD_WORLD, "gloo", str(Path(tmp) / "store"),
+                             tmp, device, body, args))
+    with open(Path(tmp) / f"{body}_launches.pkl", "rb") as f:
+        counts = pickle.load(f)
+    require(not any(n for c in counts for n in c.values()),
+            f"phase 10's {body} ranks launched a kernel of K1-K7: {counts}")
+
+
+def print_probe(ran: dict) -> None:
+    print("  gloo on the ranks' tensors ran: " + ", ".join(ran))
+
+
+def run_sharded_dense(cfg, dev, smi: str, tmp: str) -> None:
+    """10a and 10b. The single-device references on the card first (the
+    engine's tokens, a prefill, one AdamW step), then four ranks."""
+    import torch
+
+    from repro_torch.core.relshard import plan_model
+    from repro_torch.models import lm
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.training import checkpoint as ck
+    from repro_torch.training.data import DataConfig, batch_for_step
+    from repro_torch.training.optimizer import OptConfig, init_opt_state
+    from repro_torch.training.train_loop import make_train_step
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=0, device=dev)
+    prompts = serve_requests(cfg)
+    shape = ShapeConfig("serve", SHARD_PROMPT + SHARD_NEW, SHARD_SLOTS,
+                        "decode")
+    plan = plan_model(cfg, shard_axes(2, 2), shape, fsdp=False)
+    print(f"  {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}; 10a serve "
+          f"plan on 2x2: embed {plan.embed_strategy}, head "
+          f"{plan.head_strategy}, tp {plan.tp}, fsdp {plan.fsdp_axes}")
+    eng = ServeEngine(cfg, plan, None, params, max_batch=SHARD_SLOTS,
+                      max_seq=SHARD_PROMPT + SHARD_NEW, device=dev)
+    want, _ = drain(eng, prompts, SHARD_NEW, dev)
+    gen = torch.Generator().manual_seed(11)
+    toks = torch.randint(0, cfg.vocab, SHARD_PREFILL, generator=gen,
+                         dtype=torch.int32).to(dev)
+    with torch.no_grad():
+        pre = lm.prefill(eng.weights, cfg, plan, None, toks)
+        with compute_dtype(torch.float32):
+            pre32 = lm.prefill(eng.weights, cfg, plan, None, toks)
+    del eng
+    B, S = SHARD_TRAIN
+    ocfg = OptConfig(name="adamw")
+    tplan = plan_model(cfg, shard_axes(2, 2), ShapeConfig("train", S, B,
+                                                          "train"))
+    print(f"  10b train plan on 2x2: embed {tplan.embed_strategy}, head "
+          f"{tplan.head_strategy}, tp {tplan.tp}, fsdp {tplan.fsdp_axes}")
+    work = tree_map_clone(params)
+    state = init_opt_state(ocfg, work)
+    dc = DataConfig(cfg.vocab, S, B, 0, cfg.n_cond_tokens, cfg.d_model)
+    work, state, m = make_train_step(cfg, tplan, None, ocfg)(
+        work, state, batch_for_step(dc, 0, dev))
+    ref_loss = float(m["loss"])
+    del state, m
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    print(f"  single-device references on the card in "
+          f"{time.perf_counter() - t0:.1f} s: {len(prompts)} requests "
+          f"drained, prefill {SHARD_PREFILL}, one AdamW step (loss "
+          f"{ref_loss:.4f})")
+    t1 = time.perf_counter()
+    spawn_shards("dense", (cfg, params, {
+        "prompts": prompts, "new": SHARD_NEW, "prefill_tokens": toks,
+        "prefill": pre, "prefill_f32": pre32, "after": work,
+        "train": (B, S, SHARD_TRAIN_STEPS)}),
+        str(dev if dev.type == "cpu" else "cuda:0"), tmp)
+    with open(Path(tmp) / "dense.pkl", "rb") as f:
+        rep = pickle.load(f)
+    with open(Path(tmp) / "dense_ranks.pkl", "rb") as f:
+        ranks = pickle.load(f)
+    print(f"  four ranks under gloo on the one card ({smi}): "
+          f"{time.perf_counter() - t1:.1f} s, spawn included")
+    print_probe(rep["probe"])
+    got = rep["serve"]["tokens"]
+    same = sum(a == b for a, b in zip(got, want))
+    if same != len(want):
+        for i, (a, b) in enumerate(zip(got, want)):
+            if a != b:
+                j = next(t for t in range(len(a)) if a[t] != b[t])
+                gap, size = logit_gap(params, cfg, plan, prompts[i] + a[:j],
+                                      a[j], b[j], dev)
+                require(gap <= BF16_ATOL + BF16_RTOL * size,
+                        f"10a request {i}: tokens part at step {j} where "
+                        f"mesh=None's logits differ by {gap:.4f}")
+                print(f"  10a request {i}: parts at step {j}, a near-tie "
+                      f"(mesh=None's logits {gap:.4f} apart)")
+    pf = rep["prefill"]
+    print(f"  10a: {SHARD_SLOTS} requests of {SHARD_PROMPT} + {SHARD_NEW} "
+          f"tokens on 2x2: every rank's tokens equal; {same} of {len(want)} "
+          f"requests equal mesh=None's; prefill {SHARD_PREFILL} logits "
+          f"against mesh=None's: mean difference {pf['mean_err']:.5f}, "
+          f"largest {pf['max_err']:.4f}, {pf['beyond']} of {pf['entries']} "
+          f"beyond the bf16 elementwise bound; top token the same in "
+          f"{pf['top_same']} of {pf['rows']} rows, the rest near-ties")
+    tw, fl = rep["prefill_f32"], rep["prefill_fault"]
+    print(f"  10a witness: the f32 twin of that prefill (every layer in "
+          f"f32, the same bf16 weights) against mesh=None's f32 twin: "
+          f"mean difference {tw['mean_err']:.3e}, largest "
+          f"{tw['max_err']:.3e}, none beyond the bf16 elementwise bound; "
+          f"a planted fault, the last of {fl['skip'] + 1} model-axis "
+          f"all-reduces left out, reads mean {fl['mean_err']:.5f}, largest "
+          f"{fl['max_err']:.4f}, {fl['beyond']} of {fl['entries']} beyond "
+          f"(the spread check allows mean {BF16_MEAN}, "
+          f"{int(fl['entries'] * 2 ** -10)} beyond)")
+    print_rank_readings("10a decode step", [r["serve"] for r in ranks],
+                        "engine step")
+    print_rank_readings("10a prefill", [r["prefill"] for r in ranks],
+                        f"prefill {SHARD_PREFILL}")
+    for key in ("train_2x2", "train_1x4"):
+        t = rep[key]
+        require(all(math.isfinite(x) for x in t["losses"]),
+                f"10b {key}: a loss is not finite")
+        require(abs(t["loss"] - ref_loss) <= 2 ** -8 * abs(ref_loss),
+                f"10b {key}: loss {t['loss']} against mesh=None's "
+                f"{ref_loss}")
+        print(f"  10b {key}: losses " + " ".join(f"{x:.4f}" for x in
+                                                 t["losses"])
+              + f" (mesh=None's first {ref_loss:.4f}); params after step 1 "
+              f"within twice their step of mesh=None's (largest "
+              f"{t['worst_lr']:.3f} lr, mean {t['mean_lr']:.5f} lr)")
+        print_rank_readings(f"10b {key} step", [r[key] for r in ranks],
+                            "train step")
+    # the 2x2 checkpoint on 1x4 and on no mesh, bit for bit
+    like = {"params": params, "opt": init_opt_state(ocfg, params)}
+    back, _ = ck.restore(str(Path(tmp) / "ckpt"), SHARD_TRAIN_STEPS, like)
+    none = leaf_digests(back, like, None)
+    require(rep["digests_1x4"] == rep["digests_2x2"] == none,
+            "10b: the 2x2 checkpoint does not restore bit-equal")
+    print(f"  10b: the checkpoint written on 2x2 restores bit-equal on 1x4 "
+          f"and on no mesh ({len(none)} leaves)")
+    del params, work, back, like, pre, pre32
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def tree_map_clone(tree):
+    if isinstance(tree, dict):
+        return {k: tree_map_clone(v) for k, v in tree.items()}
+    return tree.clone()
+
+
+def logit_gap(params, cfg, plan, prefix, a: int, b: int, dev) -> float:
+    """How far apart mesh=None's logits of tokens ``a`` and ``b`` lie after
+    ``prefix``, and the larger of their magnitudes."""
+    import torch
+    with torch.no_grad():
+        lg = all_position_logits(params, cfg, plan, torch.tensor(
+            [prefix], dtype=torch.int32, device=dev))[0, -1]
+    return (float((lg[a] - lg[b]).abs()),
+            float(torch.maximum(lg[a].abs(), lg[b].abs())))
+
+
+def run_sharded_moe(cfg, dev, smi: str, tmp: str) -> None:
+    """10c. The replicated path on the card (mesh=None, bf16 weights, the
+    dropless capacity factor) records its routing, then four ranks run the
+    expert-parallel path on it."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core.relshard import plan_model
+    from repro_torch.models import lm
+    from repro_torch.models.config import ShapeConfig
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=0, device=dev)
+    weights = lm.cast_params(params, dev)
+    del params
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    B, S = SHARD_PREFILL
+    plan = plan_model(cfg, shard_axes(1, 4), ShapeConfig("prefill", S, B,
+                                                         "prefill"))
+    plan = dataclasses.replace(plan, moe_strategy="expert_parallel")
+    print(f"  {cfg.name}: {cfg.n_layers} of 94 layers, {cfg.n_experts} "
+          f"experts top-{cfg.top_k} ({cfg.n_experts // SHARD_WORLD} a rank); "
+          f"plan on 1x4: embed {plan.embed_strategy}, head "
+          f"{plan.head_strategy}, moe {plan.moe_strategy}")
+    gen = torch.Generator().manual_seed(13)
+    toks = torch.randint(0, cfg.vocab, SHARD_PREFILL, generator=gen,
+                         dtype=torch.int32).to(dev)
+    steps = torch.randint(0, cfg.vocab, (B, MOE_DECODE_STEPS), generator=gen,
+                          dtype=torch.int32).to(dev)
+    rec, drops = [], {}
+    for cf in (MOE_DROPLESS_CF, MOE_CF):
+        tap = (routing_tap(record=rec) if cf == MOE_DROPLESS_CF
+               else contextlib.nullcontext())
+        with torch.no_grad(), moe_factor(cf), tap:
+            hidden, aux = lm.forward(weights, cfg, plan, None, toks)
+        drops[cf] = float(aux.moe_dropped)
+        if cf == MOE_DROPLESS_CF:
+            require(drops[cf] == 0.0, f"10c: the replicated path dropped "
+                    f"{drops[cf]} at cf {cf}")
+            ref_hidden = hidden
+    rec32 = []
+    with torch.no_grad(), compute_dtype(torch.float32), \
+            moe_factor(MOE_DROPLESS_CF), routing_tap(record=rec32):
+        hidden32, aux = lm.forward(weights, cfg, plan, None, toks)
+    require(float(aux.moe_dropped) == 0.0, "10c: the replicated path's f32 "
+            "twin dropped an assignment")
+    drec, aux = [], []
+    cache = lm.init_cache(cfg, B, MOE_DECODE_STEPS, dev)
+    logits = []
+    with torch.no_grad(), moe_factor(MOE_DROPLESS_CF), \
+            routing_tap(record=drec):
+        for t in range(MOE_DECODE_STEPS):
+            lg, cache = lm.decode_step(weights, cfg, plan, None,
+                                       steps[:, t:t + 1], cache, aux)
+            logits.append(lg)
+    require(all(float(a.dropped) == 0.0 for a in aux),
+            "10c: a replicated decode step dropped an assignment")
+    del cache, hidden
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()    # the f32 twin's slots, for the ranks
+    print(f"  the replicated path on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    spawn_shards("moe", (cfg, weights, {
+        "plan": plan, "tokens": toks, "steps": steps, "hidden": ref_hidden,
+        "hidden_f32": hidden32, "dropless_cf": MOE_DROPLESS_CF,
+        "routing": [(i, p) for i, p in rec],
+        "routing_f32": [(i, p) for i, p in rec32],
+        "decode_routing": [(i, p) for i, p in drec],
+        "decode": torch.stack(logits, dim=1)}),
+        str(dev if dev.type == "cpu" else "cuda:0"), tmp)
+    with open(Path(tmp) / "moe.pkl", "rb") as f:
+        ranks = pickle.load(f)
+    print(f"  four ranks under gloo on the one card ({smi}): "
+          f"{time.perf_counter() - t1:.1f} s, spawn included")
+    print_probe(ranks[0]["probe"])
+    r0 = ranks[0]
+    print(f"  10c: prefill {SHARD_PREFILL} on the replicated path's routing"
+          f": at cf {MOE_DROPLESS_CF} neither path drops; hidden states "
+          f"against the replicated path's: mean difference "
+          f"{r0['hidden']['mean_err']:.5f}, largest "
+          f"{r0['hidden']['max_err']:.4f}, {r0['hidden']['beyond']} of "
+          f"{r0['hidden']['entries']} beyond the bf16 elementwise bound; at "
+          f"the config's cf "
+          f"{MOE_CF} expert parallel drops "
+          f"{r0[f'prefill_cf{MOE_CF}']['dropped']:.5f} of "
+          f"assignments, the replicated path {drops[MOE_CF]:.5f}"
+          f"; {MOE_DECODE_STEPS} decode steps' logits within the spread "
+          f"and their top tokens the same or near-ties (largest difference "
+          f"{r0['decode']['max_err']:.4f})")
+    tw = r0["hidden_f32"]
+    print(f"  10c witness: the f32 twin of that prefill at cf "
+          f"{MOE_DROPLESS_CF} on its own routing against the replicated "
+          f"path's f32 twin: mean difference {tw['mean_err']:.3e}, largest "
+          f"{tw['max_err']:.3e}, none beyond the bf16 elementwise bound")
+    for cf in (MOE_DROPLESS_CF, MOE_CF):
+        print_rank_readings(f"10c prefill cf {cf}",
+                            [r[f"prefill_cf{cf}"] for r in ranks],
+                            "forward")
+    print_rank_readings("10c decode step", [r["decode"] for r in ranks],
+                        "decode step")
+    del weights, ref_hidden, hidden32, logits
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def run_sharded_path(dev, smi: str, dense_cfg=None, moe_cfg=None) -> None:
+    """Phase 10 (the configs may be narrowed for a rehearsal)."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.configs import get_config
+    dense_cfg = dense_cfg or get_config("tinyllama_1_1b")
+    moe_cfg = moe_cfg or dataclasses.replace(
+        get_config("qwen3_moe_235b_a22b"), n_layers=2)
+    print(f"  reduced: {moe_cfg.name} at {moe_cfg.n_layers} of 94 layers")
+    with tempfile.TemporaryDirectory() as tmp:
+        run_sharded_dense(dense_cfg, dev, smi, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        run_sharded_moe(moe_cfg, dev, smi, tmp)
+
+
 def ptxas_usage(report: str):
     """(kernel, "registers, spills, shared memory") for each entry function
     in ``nvcc -Xptxas -v`` output. Kernel names are the last component of
@@ -4476,6 +5305,13 @@ def main() -> int:
 
     with phase("9. training"):
         run_training(dev, smi)
+
+    with phase("10. sharded LM paths, four ranks on the one card"):
+        from repro_torch.kernels import ops
+        ops.reset_launch_counts()
+        run_sharded_path(dev, smi)
+        require(not any(ops.launch_counts().values()),
+                "phase 10 launched a kernel of K1-K7")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

@@ -4,8 +4,9 @@ model, with RelShard occupancy re-planning.
     PYTHONPATH=src python -m repro_torch.examples.serve_lm [--device cpu]
 
 The twin of ``examples/serve_lm.py``. The mesh axes are written out as one
-device's, ``(("data", 1), ("model", 1))``: the port has no mesh module yet
-(``ROADMAP.md`` queue 1, item 5). It runs on the CUDA card unless
+device's, ``(("data", 1), ("model", 1))``, as the reference's one-device
+host mesh describes them (a ``launch.mesh`` mesh needs a process group;
+``launch.serve`` and ``launch.train`` start one). It runs on the CUDA card unless
 ``--device`` names another.
 """
 

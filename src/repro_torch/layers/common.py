@@ -11,17 +11,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..models import sharding as sh
+
 COMPUTE_DTYPE = torch.bfloat16
 PARAM_DTYPE = torch.float32
-
-
-def require_no_mesh(mesh) -> None:
-    """Only the single-device path is ported: the sharded layers come with
-    ``ROADMAP.md`` queue 1, item 5."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "a device mesh is not ported yet (ROADMAP.md queue 1, item 5, "
-            "LM slice 4); pass mesh=None")
 
 
 def _dense_init(gen: torch.Generator, shape, device, scale=None,
@@ -127,7 +120,16 @@ def gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
-def mlp_apply(params, x, activation: str = "swiglu"):
+def mlp_apply(params, x, activation: str = "swiglu", shard_ctx=None):
+    """With ``shard_ctx`` running tensor parallelism, the weights arrive
+    split as Megatron splits them (``w_gate``, ``w_up`` by columns,
+    ``w_down`` by rows): x enters through f and the output leaves through
+    an all-reduce (g)."""
+    if shard_ctx is not None and shard_ctx.tp:
+        mesh, M = shard_ctx.mesh, shard_ctx.model
+        y = mlp_apply(params, sh.reduce_bwd(x.to(COMPUTE_DTYPE), mesh, M),
+                      activation)
+        return sh.reduce_fwd(y, mesh, M)
     xc = x.to(COMPUTE_DTYPE)
     if activation in ("swiglu", "geglu"):
         gate = xc @ params["w_gate"].to(COMPUTE_DTYPE)

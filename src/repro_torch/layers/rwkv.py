@@ -13,6 +13,10 @@ precisions are the reference's: f32 for the decay sums and the carried
 state, the decayed r and k rounded to bf16, their scores an f32 product
 of the bf16 values, masked and then rounded. ``exp(-cum)`` grows along a
 chunk, and the reference does not rescale it; nor does the port.
+
+On a mesh the block runs replicated over the model axis (``lm`` gathers
+its weights whole), as the reference's ``_replicate_over_model`` pins the
+WKV inner; the batch rows are the rank's.
 """
 
 from __future__ import annotations
@@ -21,8 +25,7 @@ from typing import NamedTuple
 
 import torch
 
-from .common import (COMPUTE_DTYPE, PARAM_DTYPE, _dense_init, require_no_mesh,
-                     silu)
+from .common import COMPUTE_DTYPE, PARAM_DTYPE, _dense_init, silu
 from .ssm import chunk_count
 
 
@@ -88,9 +91,10 @@ def _heads(t, n_heads, hd):
 def rwkv_time_mix(params, x, state: RWKVState, *, head_dim: int,
                   chunk: int = 64, shard_ctx=None):
     """Full-sequence time-mix. x: (B, S, d) bf16. Returns (y, new state).
-    ``shard_ctx``'s mesh must be None (the sharded path is ``ROADMAP.md``
-    queue 1, item 5)."""
-    require_no_mesh(None if shard_ctx is None else shard_ctx[0])
+    On a mesh the block runs replicated over the model axis, on the rank's
+    batch rows, with its weights whole (``lm`` gathers them): the
+    reference's ``_replicate_over_model`` for the whole block, so nothing
+    here moves between ranks and ``shard_ctx`` is not read."""
     B, S, d = x.shape
     H, hd = d // head_dim, head_dim
     x_shift = torch.cat([state.x_prev[:, None, :].to(x.dtype), x[:, :-1]],

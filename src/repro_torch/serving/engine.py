@@ -29,6 +29,14 @@ The engine keeps one copy of the weights on its device
 (``lm.cast_params``): bf16 but for the few leaves the reference reads in
 f32. Every use casts any other weight to bf16 first, so the copy gives the
 same bits as casting at every step, and a decode step reads half the bytes.
+
+On a mesh every rank runs the same engine (SPMD): the same queue, the same
+admissions, its blocks of the weights (``lm.param_specs``) and of the
+cache (``lm.init_cache(..., mesh=)``). A slot's admission runs on the
+ranks that hold its cache rows (all of them when the batch does not split
+over the batch axes), and on a spare row on the others, which join its
+collectives. Each step gathers the logits whole, takes the argmax, then
+all-gathers every rank's tokens and requires them equal.
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ import torch
 from ..core.relshard import ShardingPlan, replan
 from ..joins.table import resolve_device
 from ..models import lm
+from ..models import sharding as sh
 from ..models.config import ModelConfig, ShapeConfig
 
 
@@ -64,7 +73,10 @@ class ServeEngine:
         self.mesh_axes, self.shape = mesh_axes, shape
         self.device = resolve_device(device)
         self.weights = lm.cast_params(params, self.device)
-        self.cache = lm.init_cache(cfg, max_batch, max_seq, self.device)
+        self.cache = lm.init_cache(cfg, max_batch, max_seq, self.device,
+                                   mesh=mesh, plan=plan)
+        self.ctx = lm.shard_ctx(plan, mesh, max_batch, max_seq=max_seq,
+                                cfg=cfg)
         self.slots: List[Optional[Request]] = [None] * max_batch
         # FIFO admission queue; popleft is O(1) under deep backlogs.
         self.queue: Deque[Request] = collections.deque()
@@ -86,13 +98,14 @@ class ServeEngine:
                 f"{self.max_seq}")
         self.queue.append(req)
 
-    def _decode(self, tokens, cache):
+    def _decode(self, tokens, cache, ctx=None):
+        ctx = ctx or self.ctx
         if not self.cfg.is_moe:
             return lm.decode_step(self.weights, self.cfg, self.plan,
-                                  self.mesh, tokens, cache)
+                                  self.mesh, tokens, cache, ctx=ctx)
         aux: List = []
         out = lm.decode_step(self.weights, self.cfg, self.plan, self.mesh,
-                             tokens, cache, moe_aux=aux)
+                             tokens, cache, moe_aux=aux, ctx=ctx)
         self._dropped += (torch.stack([a.dropped for a in aux]) > 0).any()
         return out
 
@@ -114,18 +127,29 @@ class ServeEngine:
         """Zero slot ``i``'s state, reset its position and teacher-force
         ``tokens`` through decode steps on its rows of the cache alone
         (views, written in place). Every cache leaf but ``pos`` has the
-        batch on axis 1."""
-        for name, leaf in self.cache.items():
+        batch on axis 1 (on a mesh, this rank's rows of it; ``pos`` is
+        whole on every rank). On a mesh whose batch axes split the slots,
+        a rank that does not hold slot ``i`` runs the same steps on a
+        spare row, so that every rank joins the collectives of the steps
+        (the weights' gathers over the fsdp axes among them)."""
+        row, ctx, leaves = i, self.ctx, self.cache
+        if ctx is not None and ctx.batch:
+            rows = self.max_batch // self.mesh.n(ctx.batch)
+            row -= self.mesh.index(ctx.batch) * rows
+            ctx = dataclasses.replace(ctx, batch=())
+            if not 0 <= row < rows:     # another rank holds the slot
+                row, leaves = 0, {name: torch.empty_like(leaf[:, :1])
+                                  for name, leaf in leaves.items()
+                                  if name != "pos"}
+        for name, leaf in leaves.items():
             if name != "pos":
-                leaf[:, i].zero_()
+                leaf[:, row].zero_()
         self.cache["pos"][i] = 0
-        if not tokens:
-            return
-        view = {name: leaf[i:i + 1] if name == "pos" else leaf[:, i:i + 1]
-                for name, leaf in self.cache.items()}
+        view = {name: self.cache["pos"][i:i + 1] if name == "pos"
+                else leaves[name][:, row:row + 1] for name in self.cache}
         feed = torch.tensor(tokens, dtype=torch.int32, device=self.device)
         for t in range(len(tokens)):
-            _, view = self._decode(feed[t:t + 1, None], view)
+            _, view = self._decode(feed[t:t + 1, None], view, ctx)
         self.cache["pos"][i] = len(tokens)
 
     # -- decode ----------------------------------------------------------------
@@ -141,7 +165,10 @@ class ServeEngine:
         tokens = torch.tensor(feed, dtype=torch.int32,
                               device=self.device)[:, None]
         logits, self.cache = self._decode(tokens, self.cache)
-        out = torch.argmax(logits, dim=-1).tolist()
+        if self.mesh is not None:
+            out = self._agreed_tokens(logits)
+        else:
+            out = torch.argmax(logits, dim=-1).tolist()
         emitted: Dict[int, int] = {}
         for i, req in enumerate(self.slots):
             if req is None:
@@ -154,6 +181,22 @@ class ServeEngine:
                 req.done = True
                 self.slots[i] = None
         return emitted
+
+    def _agreed_tokens(self, logits) -> List[int]:
+        """The step's tokens from this rank's block of the logits: the
+        logits gathered whole, their argmax, and every rank's tokens
+        gathered and required equal."""
+        vocab = (self.plan.model_axis
+                 if self.plan.head_strategy == "vocab_parallel" else None)
+        whole = sh.unshard(logits, sh.P(self.ctx.batch or None, vocab),
+                           self.mesh)
+        toks = torch.argmax(whole, dim=-1)
+        every = sh.all_gather_raw(self.mesh, toks[None],
+                                  self.mesh.axis_names, 0)
+        if not bool((every == toks[None]).all()):
+            raise RuntimeError("ranks disagree on the step's tokens: "
+                               f"{every.tolist()}")
+        return toks.tolist()
 
     # -- adaptive re-planning ----------------------------------------------------
 

@@ -14,6 +14,13 @@ leaf in pieces of at most ``PIECE_ELEMS`` elements: AdamW is elementwise,
 and every operation of Adafactor stays within a leaf's trailing two axes,
 so the pieces give the same values as the whole leaf while their
 temporaries stay small.
+
+On a mesh (``mesh=`` and the params' ``specs``) every rank updates its
+blocks. The global gradient norm adds each leaf's local sum of squares
+over exactly the axes the leaf is split on, so a replicated leaf counts
+once; Adafactor's row and column means over a split dimension add over
+that dimension's axes and divide by its whole length. The state mirrors
+the params' specs (``opt_state_specs``).
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from typing import Any, Dict, Iterator, Tuple
 import torch
 
 from ..models import lm
+from ..models import sharding as sh
 from .tree import tree_leaves, tree_map
 
 #: The largest piece of a leaf that one update touches at a time.
@@ -70,10 +78,18 @@ def init_opt_state(cfg: OptConfig, params) -> Dict[str, Any]:
 
 
 def opt_state_specs(cfg: OptConfig, param_specs_tree):
-    """Sharding specs of the state: a device mesh is not ported yet."""
-    raise NotImplementedError(
-        "optimizer state sharding needs a device mesh, which is not ported "
-        "yet (ROADMAP.md queue 1, item 5, LM slice 4)")
+    """Specs of the optimizer state: they mirror the params'."""
+    if cfg.name == "adamw":
+        return {"mu": param_specs_tree, "nu": param_specs_tree,
+                "step": sh.P()}
+
+    def row_col_spec(spec):
+        parts = tuple(spec)
+        if len(parts) < 2:
+            return {"v": spec}
+        return {"vr": sh.P(*parts[:-1]), "vc": sh.P(*parts[:-2], parts[-1])}
+    return {"fact": lm._map_tree(row_col_spec, param_specs_tree),
+            "step": sh.P()}
 
 
 def opt_state_from_numpy(tree, device) -> Dict[str, Any]:
@@ -104,25 +120,46 @@ def _grad_piece(cfg: OptConfig, g: torch.Tensor) -> torch.Tensor:
     return g.float()
 
 
-def _global_norm(cfg: OptConfig, grads) -> torch.Tensor:
-    """sqrt of the sum, in leaf order, of each leaf's sum of squares."""
-    total = 0
-    for g in tree_leaves(grads):
+def _split_axes(mesh, spec) -> tuple:
+    """The mesh axes a leaf under ``spec`` is split on, in mesh order."""
+    if mesh is None:
+        return ()
+    held = {a for e in spec for a in sh.spec_axes(e)}
+    return tuple(a for a in mesh.axis_names if a in held)
+
+
+def _global_norm(cfg: OptConfig, grads, mesh=None, specs=None
+                 ) -> torch.Tensor:
+    """sqrt of the sum, in leaf order, of each leaf's sum of squares. On a
+    mesh each leaf's local sum is added over the axes it is split on (the
+    leaves of one set of axes share one all-reduce)."""
+    spec_leaves = (tree_leaves(specs) if mesh is not None
+                   else [None] * len(tree_leaves(grads)))
+    totals: Dict[tuple, torch.Tensor] = {}
+    for g, spec in zip(tree_leaves(grads), spec_leaves):
         rows = _rows(g.contiguous())
         sq = None
         for sl in _row_pieces(rows.shape[0], rows.shape[1]):
             part = torch.sum(torch.square(_grad_piece(cfg, rows[sl])))
             sq = part if sq is None else sq + part
-        total = total + sq
+        key = _split_axes(mesh, spec)
+        totals[key] = totals[key] + sq if key in totals else sq
+    total = 0
+    for key in sorted(totals):
+        part = totals[key]
+        if key:
+            part = sh.all_reduce_raw(mesh, part, key)
+        total = total + part
     return torch.sqrt(total)
 
 
 @torch.no_grad()
-def apply_updates(cfg: OptConfig, params, opt_state, grads
-                  ) -> Tuple[Any, Any, Dict[str, torch.Tensor]]:
+def apply_updates(cfg: OptConfig, params, opt_state, grads, *, mesh=None,
+                  specs=None) -> Tuple[Any, Any, Dict[str, torch.Tensor]]:
     """One optimizer step. Returns (params, opt_state, metrics); params and
-    state are the tensors passed in, updated in place."""
-    gnorm = _global_norm(cfg, grads)
+    state are the tensors passed in, updated in place. On a mesh, params,
+    state and grads are the rank's blocks under ``specs`` (the params')."""
+    gnorm = _global_norm(cfg, grads, mesh, specs)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     step = opt_state["step"]
@@ -147,19 +184,25 @@ def apply_updates(cfg: OptConfig, params, opt_state, grads
         raise ValueError(f"unknown optimizer {cfg.name}")
     # adafactor (beta1=0 variant)
     d2 = 1 - torch.pow(0.999, stepf)
-    for p, g, f in zip(leaves_p, leaves_g, _iter_fact(opt_state["fact"],
-                                                      params)):
+    spec_leaves = (tree_leaves(specs) if mesh is not None
+                   else [None] * len(leaves_p))
+    for p, g, f, spec in zip(leaves_p, leaves_g,
+                             _iter_fact(opt_state["fact"], params),
+                             spec_leaves):
         if p.dim() < 2:
             _adafactor_vector(cfg, p, _grad_piece(cfg, g) * scale, f["v"],
                               lr, d2)
             continue
         a, b = p.shape[-2:]
+        # the axes the last two dimensions are split on
+        ax = ((), ()) if mesh is None else (sh.spec_axes(tuple(spec)[-2]),
+                                            sh.spec_axes(tuple(spec)[-1]))
         p3, g3 = p.view(-1, a, b), g.contiguous().view(-1, a, b)
         vr, vc = f["vr"].view(-1, a), f["vc"].view(-1, b)
         for sl in _row_pieces(p3.shape[0], a * b):
             _adafactor_matrices(cfg, p3[sl],
                                 _grad_piece(cfg, g3[sl]) * scale,
-                                vr[sl], vc[sl], lr, d2)
+                                vr[sl], vc[sl], lr, d2, mesh, ax)
     return params, opt_state, {"grad_norm": gnorm, "lr": lr}
 
 
@@ -188,13 +231,23 @@ def _adafactor_vector(cfg, p, g, v, lr, d2) -> None:
     _apply(cfg, p, g, den, g2, lr)
 
 
-def _adafactor_matrices(cfg, p, g, vr, vc, lr, d2) -> None:
-    """Pieces of (n, a, b) matrices with their (n, a) and (n, b) factors."""
+def _adafactor_matrices(cfg, p, g, vr, vc, lr, d2, mesh=None,
+                        axes=((), ())) -> None:
+    """Pieces of (n, a, b) matrices with their (n, a) and (n, b) factors.
+    ``axes``: the mesh axes dimensions a and b are split on (their sums
+    add over them; the means divide by the whole lengths)."""
     a, b = p.shape[-2:]
+    ax_a, ax_b = axes
+    if mesh is not None:
+        a, b = a * mesh.n(ax_a), b * mesh.n(ax_b)
+
+    def total(t, ax):
+        return sh.all_reduce_raw(mesh, t, ax) if ax else t
     g2 = (g * g).add_(1e-30)
-    vr.mul_(0.999).add_(g2.sum(dim=-1).div_(b).mul_(0.001))
-    vc.mul_(0.999).add_(g2.sum(dim=-2).div_(a).mul_(0.001))
-    rfac = (vr / vr.sum(dim=-1, keepdim=True).div_(a))[..., None]
+    vr.mul_(0.999).add_(total(g2.sum(dim=-1), ax_b).div_(b).mul_(0.001))
+    vc.mul_(0.999).add_(total(g2.sum(dim=-2), ax_a).div_(a).mul_(0.001))
+    rfac = (vr / total(vr.sum(dim=-1, keepdim=True), ax_a).div_(a))[
+        ..., None]
     vhat = rfac * vc[..., None, :]
     vhat.div_(d2).sqrt_().add_(cfg.eps)
     _apply(cfg, p, g, vhat, g2, lr)

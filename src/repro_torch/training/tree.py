@@ -11,13 +11,16 @@ from __future__ import annotations
 
 from typing import Any, Callable, List
 
+from ..models.sharding import P
+
 
 def tree_leaves(tree) -> List[Any]:
-    """The leaves of ``tree`` (dicts and tuples nest), dict keys sorted at
-    every level."""
+    """The leaves of ``tree`` (dicts and tuples nest; a partition spec
+    ``P`` is a leaf, as in ``jax.tree_util``), dict keys sorted at every
+    level."""
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
-    if isinstance(tree, tuple):
+    if isinstance(tree, tuple) and not isinstance(tree, P):
         return [leaf for v in tree for leaf in tree_leaves(v)]
     return [tree]
 

@@ -105,10 +105,17 @@ def test_restore_casts_to_like(tmp_path):
 
 
 def test_restore_onto_shardings_raises(tmp_path):
+    """Restoring onto shardings no longer raises: on a one-rank mesh the
+    leaves restore whole, bit-equal to a plain restore."""
+    from tests.helpers.lm_shard import one_rank_mesh
+    from repro_torch.models import sharding as sh
     d = str(tmp_path / "ck")
-    ck.save(d, 1, {"w": torch.ones(2)})
-    with pytest.raises(NotImplementedError, match="item 5"):
-        ck.restore(d, 1, {"w": torch.ones(2)}, shardings={"w": object()})
+    w = torch.arange(8, dtype=torch.float32).reshape(2, 4) / 3
+    ck.save(d, 1, {"w": w})
+    with one_rank_mesh() as mesh:
+        out, _ = ck.restore(d, 1, {"w": torch.zeros(2, 4)}, shardings={
+            "w": sh.NamedSharding(mesh, sh.P("data", "model"))})
+    assert torch.equal(out["w"], w)
 
 
 def test_leaf_order_is_jax_tree_flatten():

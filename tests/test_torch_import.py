@@ -65,6 +65,23 @@ def test_training_imports_with_jax_and_repro_blocked():
         "sharding_trees", "train"]))
 
 
+def test_sharding_and_launch_import_with_jax_and_repro_blocked():
+    """The mesh, the sharded paths and the launchers, imported in a process
+    where ``import jax`` and ``import repro`` fail."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "from repro_torch.models import sharding\n"
+        "from repro_torch.launch import mesh, specs, serve, train, ranks\n"
+        "print(sharding.P(('data',), None))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "P('data', None)"
+
+
 @pytest.mark.parametrize(
     "path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
     ids=lambda p: str(p.relative_to(ROOT)))

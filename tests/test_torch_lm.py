@@ -207,11 +207,14 @@ def test_decode_steps_equal_reference(run):
     cfg = dataclasses.replace(run.cfg, n_cond_tokens=0)
     ref_cache = ref_lm.init_cache(ref_cfg, B, S_DECODE)
     cache = lm.init_cache(cfg, B, S_DECODE, device="cpu")
+    # one compile for every step (called eagerly, each step's scan
+    # compiled its block again)
+    ref_step = jax.jit(lambda p, tok, c: ref_lm.decode_step(
+        p, ref_cfg, run.ref_plan, None, tok, c))
     for step in range(S_DECODE):
         tok = run.tokens[:, step:step + 1]
-        ref, ref_cache = ref_lm.decode_step(run.ref_params, ref_cfg,
-                                            run.ref_plan, None,
-                                            jnp.asarray(tok), ref_cache)
+        ref, ref_cache = ref_step(run.ref_params, jnp.asarray(tok),
+                                  ref_cache)
         port, cache = lm.decode_step(run.params, cfg, run.plan, None, t(tok),
                                      cache)
         assert_close(port, ref)
@@ -345,19 +348,29 @@ def test_rope_and_rmsnorm_equal_reference():
 
 
 # ---------------------------------------------------------------------------
-# A mesh raises; without a card, init raises
+# A one-rank mesh equals mesh=None; without a card, init raises
 # ---------------------------------------------------------------------------
 
 def test_a_mesh_raises(monkeypatch):
+    """A mesh no longer raises: on a one-rank mesh (every collective a
+    no-op, the sharded code paths taken) forward and decode equal
+    mesh=None within one bf16 rounding step."""
+    from tests.helpers.lm_shard import one_rank_mesh
     cfg = get_smoke_config("granite_8b")
     plan = plan_model(cfg, MESH1, SHAPE_BY_NAME["train_4k"], fsdp=False)
     params = lm.init_params(cfg, device="cpu")
-    tokens = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        lm.forward(params, cfg, plan, object(), tokens)
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        lm.decode_step(params, cfg, plan, object(), tokens[:, :1],
-                       lm.init_cache(cfg, 1, 8, device="cpu"))
+    tokens = torch.randint(0, cfg.vocab, (2, 16), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(3))
+    with torch.no_grad(), one_rank_mesh() as mesh:
+        for m in (None, mesh):
+            h, _ = lm.forward(params, cfg, plan, m, tokens)
+            lg, _ = lm.decode_step(params, cfg, plan, m, tokens[:, :1],
+                                   lm.init_cache(cfg, 2, 8, device="cpu",
+                                                 mesh=m, plan=plan))
+            if m is None:
+                want = (h.float(), lg)
+    torch.testing.assert_close(h.float(), want[0], rtol=2 ** -7, atol=2 ** -6)
+    torch.testing.assert_close(lg, want[1], rtol=2 ** -7, atol=2 ** -6)
 
 
 def test_without_a_card_init_raises(monkeypatch):

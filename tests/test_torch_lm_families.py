@@ -438,21 +438,30 @@ def test_bf16_copy_gives_the_same_logits(run):
 
 
 # ---------------------------------------------------------------------------
-# What is not ported raises
+# A one-rank mesh; without a card, init raises
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("arch", ["qwen3_moe_235b_a22b", "zamba2_7b",
                                   "rwkv6_3b"])
 def test_a_mesh_raises(arch):
+    """A mesh no longer raises: on a one-rank mesh the families' forward
+    and decode equal mesh=None within one bf16 rounding step."""
+    from tests.helpers.lm_shard import one_rank_mesh
     cfg = get_smoke_config(arch)
     plan = plan_model(cfg, MESH1, SHAPE_BY_NAME["train_4k"], fsdp=False)
     params = lm.init_params(cfg, device="cpu")
-    tokens = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        lm.forward(params, cfg, plan, object(), tokens)
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        lm.decode_step(params, cfg, plan, object(), tokens[:, :1],
-                       lm.init_cache(cfg, 1, 8, device="cpu"))
+    tokens = torch.randint(0, cfg.vocab, (1, 16), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(5))
+    outs = []
+    with torch.no_grad(), one_rank_mesh() as mesh:
+        for m in (None, mesh):
+            h, _ = lm.forward(params, cfg, plan, m, tokens)
+            lg, _ = lm.decode_step(params, cfg, plan, m, tokens[:, :1],
+                                   lm.init_cache(cfg, 1, 8, device="cpu",
+                                                 mesh=m, plan=plan))
+            outs.append((h.float(), lg))
+    for a, b in zip(outs[1], outs[0]):
+        torch.testing.assert_close(a, b, rtol=2 ** -7, atol=2 ** -6)
 
 
 @pytest.mark.parametrize("arch", ARCHS)

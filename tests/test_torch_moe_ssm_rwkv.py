@@ -472,9 +472,23 @@ def test_moe_capacity_is_the_reference_formula():
 
 
 def test_moe_with_a_mesh_raises():
+    """A mesh no longer raises: on a one-rank mesh expert_parallel (one
+    shard of all four experts, its capacities the reference's per-shard
+    ones) gives the replicated path's output when nothing drops."""
+    from tests.helpers.lm_shard import one_rank_mesh
+    from repro_torch.models import sharding as sh
     _, port_p = moe_params(0, 16, 32, 4)
-    x = torch.zeros((1, 4, 16), dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        moe.moe_apply(port_p, x, mesh=object(), batch_axes=(),
-                      model_axis="model", n_experts=4, top_k=2,
-                      strategy="expert_parallel")
+    x = torch.randn((1, 4, 16), generator=torch.Generator().manual_seed(2)
+                    ).to(torch.bfloat16)
+    kw = dict(batch_axes=("data",), model_axis="model", n_experts=4,
+              top_k=2)
+    want, want_aux = moe.moe_apply(port_p, x, mesh=None,
+                                   strategy="replicate", **kw)
+    with one_rank_mesh() as mesh:
+        ctx = sh.ShardCtx(mesh, ("data",), "model", None, True)
+        got, aux = moe.moe_apply(port_p, x, mesh=mesh,
+                                 strategy="expert_parallel", shard_ctx=ctx,
+                                 **kw)
+    assert float(aux.dropped) == 0.0 == float(want_aux.dropped)
+    assert torch.equal(aux.load.to(torch.int32), want_aux.load)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=0)

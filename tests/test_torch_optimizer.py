@@ -166,8 +166,24 @@ def test_opt_state_round_trips_through_numpy():
 
 
 def test_opt_state_specs_raise_without_a_mesh_port():
-    with pytest.raises(NotImplementedError, match="item 5"):
-        opt.opt_state_specs(opt.OptConfig(), {"w": None})
+    """The state specs no longer raise: they mirror the params' as the
+    reference's ``opt_state_specs`` does, for both optimizers."""
+    from jax.sharding import PartitionSpec as JP
+    from repro.training import optimizer as ref_opt
+    from repro_torch.models.sharding import P
+    specs = {"w": P("data", "model"), "b": P(None),
+             "e": P(None, "model", "data", None)}
+    ref = {k: JP(*v) for k, v in specs.items()}
+    for name in ("adamw", "adafactor"):
+        got = opt.opt_state_specs(opt.OptConfig(name=name), specs)
+        want = ref_opt.opt_state_specs(ref_opt.OptConfig(name=name), ref)
+        flat = jax.tree_util.tree_flatten_with_path(
+            want, is_leaf=lambda x: isinstance(x, JP))[0]
+        for kp, s in flat:
+            node = got
+            for k in kp:
+                node = node[k.key]
+            assert tuple(node) == tuple(s), (name, kp)
 
 
 # ---------------------------------------------------------------------------

@@ -14,6 +14,7 @@ import torch
 from repro_torch.configs import get_smoke_config
 from repro_torch.core.relshard import plan_model
 from repro_torch.examples import train_lm
+from repro_torch.models import lm
 from repro_torch.models.config import ShapeConfig
 from repro_torch.training import checkpoint as ck
 from repro_torch.training import optimizer as opt
@@ -179,21 +180,42 @@ def test_without_a_card_the_example_raises(monkeypatch, tmp_path):
 
 
 def test_a_mesh_raises(tmp_path):
+    """A mesh no longer raises: on a one-rank mesh the sharding trees are
+    the reference's, a restore onto them and a train step equal mesh=None,
+    and ``train`` runs and checkpoints."""
+    from tests.helpers.lm_shard import one_rank_mesh
+    from repro_torch.models import sharding as sh
     cfg = small_cfg()
     plan = plan_model(cfg, MESH1, SHAPE, fsdp=False)
-    mesh = object()
-    with pytest.raises(NotImplementedError, match="item 5"):
-        train_loop.batch_specs(plan, False)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        train_loop.sharding_trees(cfg, plan, mesh, OptConfig(), {})
-    with pytest.raises(NotImplementedError, match="item 5"):
-        opt.opt_state_specs(OptConfig(), {})
-    ck.save(str(tmp_path), 1, {"w": torch.ones(2)})
-    with pytest.raises(NotImplementedError, match="item 5"):
-        ck.restore(str(tmp_path), 1, {"w": torch.ones(2)},
-                   shardings={"w": mesh})
-    with pytest.raises(NotImplementedError, match="item 5"):
-        make_train_step(cfg, plan, mesh, OptConfig())
-    with pytest.raises(NotImplementedError, match="item 5"):
-        train(cfg, plan, mesh, steps=1, global_batch=2, seq_len=16,
-              device="cpu")
+    assert train_loop.batch_specs(plan, True) == {
+        "tokens": sh.P(plan.batch_axes), "cond_emb": sh.P(plan.batch_axes)}
+    params = lm.init_params(cfg, 0, device="cpu")
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 16),
+                                     dtype=torch.int32,
+                                     generator=torch.Generator()
+                                     .manual_seed(1))}
+    with one_rank_mesh() as mesh:
+        p_sh, o_sh, specs = train_loop.sharding_trees(cfg, plan, mesh,
+                                                      OptConfig(), params)
+        assert specs == lm.param_specs(cfg, params, plan)
+        assert opt.opt_state_specs(OptConfig(), specs)["mu"] == specs
+        ck.save(str(tmp_path), 1, params)
+        back, _ = ck.restore(str(tmp_path), 1, lm.init_params(cfg, 1, "cpu"),
+                             shardings=p_sh)
+        assert all(torch.equal(a, b) for a, b in
+                   zip(tree_leaves(back), tree_leaves(params)))
+        outs = []
+        for m in (None, mesh):
+            p = lm._map_tree(torch.clone, params)
+            state = opt.init_opt_state(OptConfig(), p)
+            p, state, metrics = make_train_step(cfg, plan, m, OptConfig())(
+                p, state, batch)
+            outs.append((p, float(metrics["loss"])))
+        assert abs(outs[0][1] - outs[1][1]) <= 1e-6 * abs(outs[0][1])
+        for a, b in zip(tree_leaves(outs[0][0]), tree_leaves(outs[1][0])):
+            torch.testing.assert_close(a, b, rtol=2 ** -10, atol=1e-6)
+        out = train(cfg, plan, mesh, steps=2, global_batch=2, seq_len=16,
+                    ckpt_dir=str(tmp_path / "run"), ckpt_every=2,
+                    log_every=1, device="cpu")
+    assert len(out["history"]) == 2 and ck.latest_step(
+        str(tmp_path / "run")) == 2
