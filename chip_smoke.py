@@ -198,7 +198,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    a mean difference within 2^-6, at most 2^-10 of the entries beyond
    the bf16 elementwise bound, top tokens equal or near-ties. Each rank
    prints its step by CUDA events, its collective calls and bytes by
-   kind and its peak memory; which collectives gloo ran on CUDA tensors.
+   kind and its peak memory; which collectives gloo ran on CUDA tensors;
+11. the cost tools, launch counts set to 0 just before and required to
+   stay 0: 11a, ``python -m repro_torch.launch.dryrun`` in subprocesses on
+   this machine's torch (tinyllama-1.1b ``decode_32k`` on 16x16 and
+   2x16x16, rwkv6-3b ``long_500k``, tinyllama ``long_500k``, which must
+   skip with the reference's reason), each record's roofline printed;
+   11b, phase 10a's prefill counted by ``hlo_cost.count`` on meta tensors
+   under a fake world of 4: its collective calls and bytes by kind must
+   equal rank 0's readings, the estimated peak printed beside the
+   measured one; 11c, tinyllama-1.1b's prefill at 8 x 512 and decode step
+   at batch 8 on one device, counted on meta and on the card's tensors:
+   FLOPs equal, the outputs and temporaries estimated within 2x of
+   ``max_memory_allocated``'s rise over the prefill, the roofline's step
+   beside the CUDA-event time.
 
 With ``--save-inputs PATH`` it saves the inputs at which it timed the
 bitonic sort, the bloom build and key_range, for
@@ -4630,14 +4643,15 @@ def dense_rank(rank: int, dev, cfg, params, ref: dict, out_dir: str
     with torch.no_grad():
         logits, ms = timed(dev, lambda: lm.prefill(
             eng.weights, cfg, plan, mesh, ref["prefill_tokens"]))
+    # the prefill's own readings, before the logits are gathered whole
+    readings = rank_readings(mesh, dev, [ms])
     vocab = plan.model_axis if plan.head_strategy == "vocab_parallel" \
         else None
     ctx = lm.shard_ctx(plan, mesh, ref["prefill_tokens"].shape[0])
     spec = sh.P(ctx.batch or None, vocab)
     whole = sh.unshard(logits, spec, mesh)
     report["prefill"] = {**depth_close(whole, ref["prefill"],
-                                       "10a prefill logits"),
-                         **rank_readings(mesh, dev, [ms])}
+                                       "10a prefill logits"), **readings}
     del logits, whole
 
     # the f32 twin of that prefill, and the last all-reduce left out
@@ -4879,9 +4893,10 @@ def print_probe(ran: dict) -> None:
     print("  gloo on the ranks' tensors ran: " + ", ".join(ran))
 
 
-def run_sharded_dense(cfg, dev, smi: str, tmp: str) -> None:
+def run_sharded_dense(cfg, dev, smi: str, tmp: str) -> dict:
     """10a and 10b. The single-device references on the card first (the
-    engine's tokens, a prefill, one AdamW step), then four ranks."""
+    engine's tokens, a prefill, one AdamW step), then four ranks. Returns
+    rank 0's readings of the 10a prefill (phase 11b counts it)."""
     import torch
 
     from repro_torch.core.relshard import plan_model
@@ -5004,6 +5019,7 @@ def run_sharded_dense(cfg, dev, smi: str, tmp: str) -> None:
     del params, work, back, like, pre, pre32
     if dev.type == "cuda":
         torch.cuda.empty_cache()
+    return ranks[0]["prefill"]
 
 
 def tree_map_clone(tree):
@@ -5130,8 +5146,9 @@ def run_sharded_moe(cfg, dev, smi: str, tmp: str) -> None:
         torch.cuda.empty_cache()
 
 
-def run_sharded_path(dev, smi: str, dense_cfg=None, moe_cfg=None) -> None:
-    """Phase 10 (the configs may be narrowed for a rehearsal)."""
+def run_sharded_path(dev, smi: str, dense_cfg=None, moe_cfg=None) -> dict:
+    """Phase 10 (the configs may be narrowed for a rehearsal). Returns
+    rank 0's readings of the 10a prefill."""
     import dataclasses
     import tempfile
 
@@ -5141,9 +5158,224 @@ def run_sharded_path(dev, smi: str, dense_cfg=None, moe_cfg=None) -> None:
         get_config("qwen3_moe_235b_a22b"), n_layers=2)
     print(f"  reduced: {moe_cfg.name} at {moe_cfg.n_layers} of 94 layers")
     with tempfile.TemporaryDirectory() as tmp:
-        run_sharded_dense(dense_cfg, dev, smi, tmp)
+        prefill = run_sharded_dense(dense_cfg, dev, smi, tmp)
     with tempfile.TemporaryDirectory() as tmp:
         run_sharded_moe(moe_cfg, dev, smi, tmp)
+    return prefill
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the cost tools
+# ---------------------------------------------------------------------------
+
+#: 11a: (arch, shape, mesh) run through ``python -m repro_torch.launch.dryrun``
+DRYRUN_CELLS = (("tinyllama-1.1b", "decode_32k", "both"),
+                ("rwkv6-3b", "long_500k", "single"),
+                ("tinyllama-1.1b", "long_500k", "single"))
+#: 11c: how far the memory estimate may lie from the card's reading
+MEMORY_RATIO = 2.0
+
+
+def roofline_line(rec: dict) -> str:
+    rf = rec["roofline"]
+    return (f"compute {rf['compute_s']:.3e} s, memory {rf['memory_s']:.3e} "
+            f"s, collective {rf['collective_s']:.3e} s: {rf['bound']}-bound, "
+            f"step {rf['step_time_s']:.3e} s; "
+            f"{rec['cost']['flops_per_device']:.4g} FLOPs, "
+            f"{rec['cost']['bytes_per_device']:.4g} HBM bytes, "
+            f"{sum(rec['collectives_per_device'].values()):.4g} collective "
+            f"bytes a device; 6ND/counted "
+            f"{rec['model_flops_ratio']:.3f}; peak estimate "
+            f"{rec['memory']['peak_estimate_per_device'] / 1e9:.2f} GB a "
+            f"device; counted in {rec['count_s']} s")
+
+
+def run_dryrun_cells(tmp: str) -> None:
+    """11a: the dry run's command line in subprocesses on this machine's
+    torch (its fake process group is a private module of torch: a missing
+    one fails here), every record read back."""
+    import json
+    import os
+
+    from repro_torch.configs import ARCH_ALIASES, get_config
+    from repro_torch.models.config import SHAPE_BY_NAME, shape_applicable
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--mesh", mesh, "--out", tmp], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for arch, shape, mesh in DRYRUN_CELLS]
+    for (arch, shape, mesh), proc in zip(DRYRUN_CELLS, procs):
+        out, err = proc.communicate(timeout=600)
+        require(proc.returncode == 0, f"11a: the dry run of {arch} {shape} "
+                f"{mesh} failed: {out[-1500:]} {err[-1500:]}")
+        name = ARCH_ALIASES[arch]
+        for tag in (("single", "multi") if mesh == "both" else (mesh,)):
+            with open(Path(tmp) / f"{name}_{shape}_{tag}.json") as f:
+                rec = json.load(f)
+            skip = shape_applicable(get_config(name), SHAPE_BY_NAME[shape])
+            if skip:
+                require(rec == {"arch": name, "shape": shape, "mesh": tag,
+                                "status": "skip", "reason": skip},
+                        f"11a: {name} {shape} {tag}: {rec}")
+                print(f"  11a {name} {shape} {tag}: skip, {skip}")
+                continue
+            require(rec["status"] == "ok", f"11a: {name} {shape} {tag}: "
+                    f"{rec.get('error')}")
+            require(rec["chips"] == (512 if tag == "multi" else 256)
+                    and rec["cost"]["flops_per_device"] > 0,
+                    f"11a: {name} {shape} {tag}: {rec}")
+            print(f"  11a {name} {shape} {tag} ({rec['chips']} GPUs, plan "
+                  f"{rec['plan']}): {roofline_line(rec)}")
+
+
+def count_sharded_prefill(cfg, measured: dict) -> None:
+    """11b: phase 10a's prefill (the serve plan on 2x2, the engine's bf16
+    copy of rank 0's blocks, 8 x 512 tokens) counted on meta tensors under
+    a fake world of 4: its collectives must equal what rank 0 moved."""
+    import torch
+
+    from repro_torch.core.relshard import plan_model
+    from repro_torch.launch import hlo_cost
+    from repro_torch.launch.dryrun import fake_world
+    from repro_torch.models import lm
+    from repro_torch.models import sharding as sh
+    from repro_torch.models.config import ShapeConfig
+    with fake_world(SHARD_WORLD):
+        mesh = sh.Mesh(shard_axes(2, 2), device="meta")
+        shape = ShapeConfig("serve", SHARD_PROMPT + SHARD_NEW, SHARD_SLOTS,
+                            "decode")
+        plan = plan_model(cfg, shard_axes(2, 2), shape, fsdp=False)
+        weights = lm.cast_params(lm.shard_params(
+            lm.init_params(cfg, device="meta"), cfg, plan, mesh))
+        tokens = torch.empty(SHARD_PREFILL, dtype=torch.int32, device="meta")
+
+        def prefill(w, t):
+            with torch.no_grad():
+                return lm.prefill(w, cfg, plan, mesh, t)
+        _, s, mem = hlo_cost.count(prefill, weights, tokens, mesh=mesh)
+    want_calls = {hlo_cost._KIND_NAMES[k]: n
+                  for k, n in measured["calls"].items() if n}
+    want_bytes = {hlo_cost._KIND_NAMES[k]: float(n)
+                  for k, n in measured["bytes"].items() if n}
+    require(s.collective_calls == want_calls
+            and s.collective_wire_bytes == want_bytes,
+            f"11b: counted {s.collective_calls} calls, "
+            f"{s.collective_wire_bytes} bytes; rank 0 moved {want_calls}, "
+            f"{want_bytes}")
+    print(f"  11b {cfg.name} prefill {SHARD_PREFILL} on 2x2 counted on meta "
+          f"under a fake world of {SHARD_WORLD}: collectives "
+          + ", ".join(f"{k} {s.collective_calls[k]} calls "
+                      f"{s.collective_wire_bytes[k]:.0f} B"
+                      for k in s.collective_calls)
+          + " = phase 10a's rank 0 exactly; "
+          f"{s.flops:.4g} FLOPs, {s.bytes_accessed:.4g} HBM bytes a rank; "
+          f"memory estimate: arguments {mem.argument_bytes / 1e9:.3f} GB, "
+          f"outputs {mem.output_bytes / 1e9:.4f}, temp "
+          f"{mem.temp_bytes / 1e9:.3f}, peak {mem.peak_estimate / 1e9:.3f} "
+          f"GB beside phase 10a's measured peak a rank "
+          f"{measured['peak'] / 1e9:.2f} GB (the engine's whole drain: its "
+          f"weights, cache and the prefill)")
+
+
+def count_meta_and_card(dev, smi: str) -> None:
+    """11c: tinyllama-1.1b's prefill at 8 x 512 and its decode step at
+    batch 8 (phase 7's plan, one device, no mesh) counted on meta and on
+    the card's tensors by the same mode: FLOPs equal, the card's memory
+    rise over the prefill within ``MEMORY_RATIO`` of the estimate, and
+    the roofline's step beside CUDA-event times."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.relshard import plan_model
+    from repro_torch.launch import hlo_cost
+    from repro_torch.launch.roofline import roofline_from_counts
+    from repro_torch.models import lm
+    from repro_torch.models.config import ShapeConfig
+    cfg = get_config("tinyllama_1_1b")
+    batch, max_seq = 8, 256
+    plan = plan_model(cfg, LM_MESH, ShapeConfig("serve", max_seq, batch,
+                                                "decode"), fsdp=False)
+    gen = torch.Generator().manual_seed(11)
+    host = torch.randint(0, cfg.vocab, SHARD_PREFILL, generator=gen,
+                         dtype=torch.int32)
+
+    def prefill(w, t):
+        with torch.no_grad():
+            return lm.prefill(w, cfg, plan, None, t)
+
+    def decode(w, t, cache):
+        with torch.no_grad():
+            return lm.decode_step(w, cfg, plan, None, t, cache)
+
+    counts = {}
+    for where in ("meta", dev):
+        weights = lm.cast_params(lm.init_params(cfg, seed=0, device=where),
+                                 where)
+        tokens = host.to(where)
+        tok8 = tokens[:, :1].contiguous()
+        cache = lm.init_cache(cfg, batch, max_seq, device=where)
+        cache["pos"].fill_(max_seq // 2)
+        if where is dev:
+            synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            before = torch.cuda.memory_allocated(dev)
+        logits, s, mem = hlo_cost.count(prefill, weights, tokens)
+        if where is dev:
+            synchronize(dev)
+            rise = torch.cuda.max_memory_allocated(dev) - before
+            require(torch_isfinite(logits), "11c: prefill logits not finite")
+        del logits
+        _, sd, memd = hlo_cost.count(decode, weights, tok8, cache)
+        counts[str(where)] = (s, mem, sd, memd)
+        if where is not dev:
+            continue
+        pre_ms = cuda_ms(lambda: prefill(weights, tokens), reps=3)
+        dec_ms = cuda_ms(lambda: decode(weights, tok8, cache), reps=10)
+        del weights, cache
+        torch.cuda.empty_cache()
+    (s_m, mem_m, sd_m, _), (s_c, mem_c, sd_c, _) = counts["meta"], \
+        counts[str(dev)]
+    require(s_m.flops == s_c.flops and sd_m.flops == sd_c.flops,
+            f"11c: FLOPs on meta {s_m.flops}, {sd_m.flops} against the "
+            f"card's tensors {s_c.flops}, {sd_c.flops}")
+    made = mem_m.output_bytes + mem_m.temp_bytes
+    require(made / MEMORY_RATIO <= rise <= made * MEMORY_RATIO,
+            f"11c: the prefill's memory rise on the card {rise} B against "
+            f"an estimate of {made} B (outputs and temp)")
+    print(f"  11c {cfg.name}, one device: prefill {SHARD_PREFILL} "
+          f"{s_m.flops:.6g} FLOPs on meta = {s_c.flops:.6g} on the card's "
+          f"tensors; decode step, batch {batch}: {sd_m.flops:.6g} = "
+          f"{sd_c.flops:.6g}; HBM bytes counted on meta / on the card: "
+          f"prefill {s_m.bytes_accessed:.6g} / {s_c.bytes_accessed:.6g}, "
+          f"decode {sd_m.bytes_accessed:.6g} / {sd_c.bytes_accessed:.6g}")
+    print(f"  11c prefill memory ({smi}): estimate of what the call makes "
+          f"(outputs {mem_m.output_bytes / 1e6:.1f} MB + temp "
+          f"{mem_m.temp_bytes / 1e6:.1f} MB) {made / 1e6:.1f} MB against "
+          f"max_memory_allocated's rise over the call {rise / 1e6:.1f} MB "
+          f"(ratio {rise / made:.3f}); the same counted on the card's "
+          f"tensors {(mem_c.output_bytes + mem_c.temp_bytes) / 1e6:.1f} MB; "
+          f"peak estimate with the arguments {mem_m.peak_estimate / 1e9:.3f}"
+          f" GB")
+    for label, summary, ms in (("prefill", s_m, pre_ms),
+                               (f"decode step, batch {batch}", sd_m,
+                                dec_ms)):
+        rf = roofline_from_counts(summary, 1)
+        print(f"  11c {label}: roofline step {rf.step_time_s() * 1e3:.3f} "
+              f"ms ({rf.bound}-bound: compute {rf.compute_s * 1e3:.3f}, "
+              f"memory {rf.memory_s * 1e3:.3f} ms) beside {ms:.3f} ms by "
+              f"CUDA events ({smi})")
+
+
+def run_cost_tools(dev, smi: str, prefill_10a: dict) -> None:
+    """Phase 11; no kernel of K1-K7 may launch."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    with tempfile.TemporaryDirectory() as tmp:
+        run_dryrun_cells(tmp)
+    count_sharded_prefill(get_config("tinyllama_1_1b"), prefill_10a)
+    count_meta_and_card(dev, smi)
 
 
 def ptxas_usage(report: str):
@@ -5309,9 +5541,16 @@ def main() -> int:
     with phase("10. sharded LM paths, four ranks on the one card"):
         from repro_torch.kernels import ops
         ops.reset_launch_counts()
-        run_sharded_path(dev, smi)
+        prefill_10a = run_sharded_path(dev, smi)
         require(not any(ops.launch_counts().values()),
                 "phase 10 launched a kernel of K1-K7")
+
+    with phase("11. the cost tools"):
+        ops.reset_launch_counts()
+        run_cost_tools(dev, smi, prefill_10a)
+        require(not any(ops.launch_counts().values()),
+                "phase 11 launched a kernel of K1-K7")
+        print("  kernel launches in phase 11: none of K1-K7")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

@@ -566,49 +566,53 @@ def train_loss(params, cfg: ModelConfig, plan: ShardingPlan, mesh, batch,
 # serving: prefill + decode
 # ---------------------------------------------------------------------------
 
+def cache_layout(cfg: ModelConfig, batch: int, max_seq: int):
+    """{leaf name: (whole shape, dtype)} of a decode cache, every leaf but
+    ``pos`` with the batch on its axis 1: per-layer K/V of ``max_seq``
+    positions (uniform blocks), the RWKV state and token-shift inputs
+    (SSM), or the SSM state, conv tail and the shared attention's K/V per
+    application (HYBRID); and each row's next write position."""
+    L, d, bf16 = cfg.n_layers, cfg.d_model, cm.COMPUTE_DTYPE
+    pos = ((batch,), torch.int32)
+    if cfg.family is Family.SSM:
+        H, hd = d // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+        return {"s": ((L, batch, H, hd, hd), torch.float32),
+                "x_prev_tm": ((L, batch, d), bf16),
+                "x_prev_cm": ((L, batch, d), bf16), "pos": pos}
+    if cfg.family is Family.HYBRID:
+        heads = ssm_heads(cfg)
+        kv = ((L // attn_period(cfg), batch, max_seq, cfg.kv_heads, cfg.hd),
+              bf16)
+        return {"ssm_s": ((L, batch, heads, 2 * d // heads, cfg.ssm_state),
+                          torch.float32),
+                "conv": ((L, batch, 2 * d, ssm_mod.CONV_K - 1), bf16),
+                "attn_k": kv, "attn_v": kv, "pos": pos}
+    kv = ((L, batch, max_seq, cfg.kv_heads, cfg.hd), bf16)
+    return {"k": kv, "v": kv, "pos": pos}
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None,
                mesh=None, plan: Optional[ShardingPlan] = None):
-    """Decode state for one generation session, every leaf but ``pos``
-    with the batch on its axis 1: per-layer K/V of ``max_seq`` positions
-    (uniform blocks), the RWKV state and token-shift inputs (SSM), or the
-    SSM state, conv tail and the shared attention's K/V per application
-    (HYBRID); and each row's next write position. With a mesh (and the
-    plan), the rank's block of each leaf under ``cache_pspec``."""
+    """Decode state for one generation session, zeros in
+    ``cache_layout``. With a mesh (and the plan), the rank's block of each
+    leaf under ``cache_pspec``."""
     dev = resolve_device(device)
     specs = (cache_specs(cfg, plan, mesh, batch, max_seq)
              if mesh is not None else None)
 
-    def zeros(name, shape, dtype=cm.COMPUTE_DTYPE):
+    def zeros(name, shape, dtype):
         if specs is not None:
             shape = tuple(n // mesh.n(e) for n, e in
                           zip(shape, tuple(specs[name]) + (None,) * 8))
         return torch.zeros(shape, dtype=dtype, device=dev)
-    L, d = cfg.n_layers, cfg.d_model
-    pos = zeros("pos", (batch,), torch.int32)
-    if cfg.family is Family.SSM:
-        H, hd = d // cfg.rwkv_head_dim, cfg.rwkv_head_dim
-        return {"s": zeros("s", (L, batch, H, hd, hd), torch.float32),
-                "x_prev_tm": zeros("x_prev_tm", (L, batch, d)),
-                "x_prev_cm": zeros("x_prev_cm", (L, batch, d)),
-                "pos": pos}
-    if cfg.family is Family.HYBRID:
-        heads = ssm_heads(cfg)
-        n_seg = L // attn_period(cfg)
-        kv = (n_seg, batch, max_seq, cfg.kv_heads, cfg.hd)
-        return {"ssm_s": zeros("ssm_s", (L, batch, heads, 2 * d // heads,
-                                         cfg.ssm_state), torch.float32),
-                "conv": zeros("conv", (L, batch, 2 * d,
-                                       ssm_mod.CONV_K - 1)),
-                "attn_k": zeros("attn_k", kv), "attn_v": zeros("attn_v", kv),
-                "pos": pos}
-    kv = (L, batch, max_seq, cfg.kv_heads, cfg.hd)
-    return {"k": zeros("k", kv), "v": zeros("v", kv), "pos": pos}
+    return {k: zeros(k, shape, dtype) for k, (shape, dtype) in
+            cache_layout(cfg, batch, max_seq).items()}
 
 
 def cache_shapes(cfg: ModelConfig, batch: int, max_seq: int):
-    """The whole cache's leaf shapes, by name (``init_cache`` on meta)."""
-    return {k: tuple(v.shape) for k, v in
-            init_cache(cfg, batch, max_seq, device="meta").items()}
+    """The whole cache's leaf shapes, by name."""
+    return {k: shape for k, (shape, _) in
+            cache_layout(cfg, batch, max_seq).items()}
 
 
 def cache_pspec(shp, cfg: ModelConfig, plan: ShardingPlan, mesh,

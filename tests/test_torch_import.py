@@ -82,6 +82,31 @@ def test_sharding_and_launch_import_with_jax_and_repro_blocked():
     assert out.stdout.strip() == "P('data', None)"
 
 
+def test_cost_tools_import_with_jax_and_repro_blocked():
+    """The dry run, the cost accounting, the roofline and the report,
+    imported in a process where ``import jax`` and ``import repro`` fail:
+    importing them sets no environment variable (the reference's dry run
+    sets ``XLA_FLAGS``), starts no process group and touches no device."""
+    code = (
+        "import os, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "env = dict(os.environ)\n"
+        "from repro_torch.launch import dryrun, hlo_cost, report, roofline\n"
+        "import torch\n"
+        "assert dict(os.environ) == env\n"
+        "assert not torch.distributed.is_initialized()\n"
+        "assert not torch.cuda.is_initialized()\n"
+        "print(roofline.PEAK_FLOPS, dryrun.count_cell.__name__,\n"
+        "      hlo_cost.count.__name__, report.summary.__name__)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["989000000000000.0", "count_cell",
+                                  "count", "summary"]
+
+
 @pytest.mark.parametrize(
     "path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
     ids=lambda p: str(p.relative_to(ROOT)))
