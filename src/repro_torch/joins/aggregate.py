@@ -15,6 +15,7 @@ from typing import Dict, Sequence, Tuple
 
 import torch
 
+from .. import obs
 from .exchange import ExchangeReport, shuffle
 from .table import Table
 
@@ -76,13 +77,15 @@ def group_aggregate(table: Table, key: str,
     """Distributed group-by: shuffle by key + local segment aggregation."""
     if not table.stacked:
         raise ValueError("group_aggregate expects a stacked table")
-    shuffled, report = shuffle(table, key, capacity_factor)
-    out_cols, out_valid = _local_group_agg(
-        shuffled.column(key), shuffled.valid, shuffled.columns, tuple(aggs))
-    out_cols[key] = out_cols.pop("_group_key")
-    # Output is hash-partitioned by the group key: downstream shuffles on
-    # the same key are elided (§3.7 key-dependency).
-    return Table(out_cols, out_valid, partitioned_by=key), report
+    with obs.span(obs.AGGREGATE):
+        shuffled, report = shuffle(table, key, capacity_factor)
+        out_cols, out_valid = _local_group_agg(
+            shuffled.column(key), shuffled.valid, shuffled.columns,
+            tuple(aggs))
+        out_cols[key] = out_cols.pop("_group_key")
+        # Output is hash-partitioned by the group key: downstream shuffles
+        # on the same key are elided (§3.7 key-dependency).
+        return Table(out_cols, out_valid, partitioned_by=key), report
 
 
 def global_aggregate(table: Table, aggs: Sequence[Tuple[str, str]]

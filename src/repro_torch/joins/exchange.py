@@ -22,6 +22,7 @@ import dataclasses
 
 import torch
 
+from .. import obs
 from ..kernels.partition_hist import partition_hist
 from .slots import (_MASK32, SHUFFLE_SEED, gather_rows, hash32,
                     pair_capacity, slot_scatter)
@@ -90,15 +91,16 @@ def broadcast(table: Table) -> tuple[Table, ExchangeReport]:
     """
     if not table.stacked:
         raise ValueError("broadcast expects a stacked table")
-    p = table.num_partitions
-    full = concat_partitions(table)
-    rows = full.count()
-    bytes_all = rows * full.row_bytes
-    report = ExchangeReport("broadcast",
-                            network_bytes=(p - 1) * bytes_all,
-                            local_bytes=bytes_all,
-                            straggler_bytes=float(bytes_all))
-    return full, report
+    with obs.span(obs.EXCHANGE, "broadcast"):
+        p = table.num_partitions
+        full = concat_partitions(table)
+        rows = full.count()
+        bytes_all = rows * full.row_bytes
+        report = ExchangeReport("broadcast",
+                                network_bytes=(p - 1) * bytes_all,
+                                local_bytes=bytes_all,
+                                straggler_bytes=float(bytes_all))
+        return full, report
 
 
 def _exchange_by_dest(table: Table, dest: torch.Tensor, pair_cap: int,
@@ -113,31 +115,39 @@ def _exchange_by_dest(table: Table, dest: torch.Tensor, pair_cap: int,
     the straggler is the hottest destination's landed bytes (partition_hist
     of the destination ids).
     """
-    p = table.num_partitions
-    scat = slot_scatter(dest, table.valid, p, pair_cap)  # (p_src, p_dst, pc)
+    with obs.span(obs.EXCHANGE, kind):
+        p = table.num_partitions
+        # (p_src, p_dst, pc)
+        scat = slot_scatter(dest, table.valid, p, pair_cap)
 
-    send_cols, send_valid = gather_rows(table.columns, scat.idx)
-    # all_to_all == axis transpose in the global view.
-    recv_cols = {n: c.transpose(0, 1).reshape(p, p * pair_cap)
-                 for n, c in send_cols.items()}
-    recv_valid = send_valid.transpose(0, 1).reshape(p, p * pair_cap)
-    out = Table(recv_cols, recv_valid, partitioned_by=partitioned_by)
+        send_cols, send_valid = gather_rows(table.columns, scat.idx)
+        # all_to_all == axis transpose in the global view.
+        recv_cols = {n: c.transpose(0, 1).reshape(p, p * pair_cap)
+                     for n, c in send_cols.items()}
+        recv_valid = send_valid.transpose(0, 1).reshape(p, p * pair_cap)
+        out = Table(recv_cols, recv_valid, partitioned_by=partitioned_by)
 
-    # Measured workload: rows that actually crossed partitions, plus the
-    # per-destination load histogram for straggler accounting.
-    src_ids = torch.arange(p, dtype=torch.int32, device=dest.device)[:, None]
-    moved = (table.valid & (dest != src_ids)).sum()
-    stayed = (table.valid & (dest == src_ids)).sum()
-    loads = _flat_hist(dest, table.valid, p)
-    rb = table.row_bytes
-    report = ExchangeReport(
-        kind,
-        network_bytes=float(moved) * rb,
-        local_bytes=float(stayed) * rb,
-        overflow_rows=int(scat.overflow.sum()),
-        straggler_bytes=float(loads.max()) * rb,
-    )
-    return out, report
+        # Measured workload: rows that actually crossed partitions, plus the
+        # per-destination load histogram for straggler accounting.
+        src_ids = torch.arange(p, dtype=torch.int32,
+                               device=dest.device)[:, None]
+        moved = (table.valid & (dest != src_ids)).sum()
+        stayed = (table.valid & (dest == src_ids)).sum()
+        loads = _flat_hist(dest, table.valid, p)
+        rb = table.row_bytes
+        with obs.sync("exchange"):
+            network_bytes = float(moved) * rb
+        with obs.sync("exchange"):
+            local_bytes = float(stayed) * rb
+        with obs.sync("exchange"):
+            overflow_rows = int(scat.overflow.sum())
+        with obs.sync("exchange"):
+            straggler_bytes = float(loads.max()) * rb
+        report = ExchangeReport(kind, network_bytes=network_bytes,
+                                local_bytes=local_bytes,
+                                overflow_rows=overflow_rows,
+                                straggler_bytes=straggler_bytes)
+        return out, report
 
 
 def shuffle(table: Table, key: str, capacity_factor: float = 2.0
@@ -323,8 +333,10 @@ def key_skew(table: Table, key: str, p: int | None = None,
     p = p or table.num_partitions
     counts = _flat_hist(_dest_partition(table.column(key), p), table.valid,
                         p)
-    total = int(counts.sum())
+    with obs.sync("skew"):
+        total = int(counts.sum())
     if total == 0:
         return 1.0
-    s = float(counts.max()) * p / total
+    with obs.sync("skew"):
+        s = float(counts.max()) * p / total
     return s if s >= floor else 1.0

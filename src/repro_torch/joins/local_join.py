@@ -27,6 +27,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from .. import obs
 from ..kernels import ops as kops
 from ..kernels import ref as kref
 from .slots import BUCKET_SEED, group_by_dest, hash32, slot_scatter
@@ -151,7 +152,8 @@ def _probe_tiles(ab: torch.Tensor, a_valid: torch.Tensor, nb: int,
     order, d_sorted, pos, counts = group_by_dest(ab, a_valid, nb)
     n_tiles = ((counts + tile - 1) // tile).reshape(-1)  # (P*nb,)
     first_tile = torch.cumsum(n_tiles, 0) - n_tiles
-    total = int(n_tiles.sum())
+    with obs.sync("tiles"):
+        total = int(n_tiles.sum())
     bucket = (torch.arange(bsz, device=ab.device)[:, None] * nb
               + d_sorted.clamp(max=nb - 1))
     tile_id = first_tile[bucket] + torch.div(pos, tile, rounding_mode="floor")
@@ -161,8 +163,10 @@ def _probe_tiles(ab: torch.Tensor, a_valid: torch.Tensor, nb: int,
     rows = torch.full((total * tile + 1,), -1, dtype=torch.int32,
                       device=ab.device)
     rows.scatter_(0, flat.reshape(-1), order.to(torch.int32).reshape(-1))
-    buckets = torch.repeat_interleave(
-        torch.arange(bsz * nb, device=ab.device), n_tiles)
+    with obs.sync("tile_buckets"):
+        # Without ``output_size`` the output's length is read back.
+        buckets = torch.repeat_interleave(
+            torch.arange(bsz * nb, device=ab.device), n_tiles)
     return rows[:-1].reshape(total, tile), buckets
 
 

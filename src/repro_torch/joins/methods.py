@@ -25,6 +25,7 @@ from typing import Callable
 
 import torch
 
+from .. import obs
 from ..core.cost_model import JoinMethod
 from ..kernels import ops as kops
 from .exchange import (ExchangeReport, broadcast, hypercube_shuffle,
@@ -92,14 +93,15 @@ def broadcast_hash_join(a: Table, b: Table, a_key: str, b_key: str,
     """Broadcast B to every partition; radix-hash probe A's partitions."""
     p = a.num_partitions
     b_full, ex = broadcast(b)
-    res = hash_join(a.column(a_key), a.valid, b_full.column(b_key),
-                    b_full.valid, use_kernel=use_kernel)
-    out = _finish(a, b_full.columns, res, join_type, b_key)
-    out.partitioned_by = a.partitioned_by
-    rep = JoinReport(JoinMethod.BROADCAST_HASH, [ex],
-                     _local_bytes(a, b_full.count(), b_full.row_bytes, p,
-                                  build_replicated=True),
-                     out.count())
+    with obs.span(obs.LOCAL_JOIN, "broadcast_hash"):
+        res = hash_join(a.column(a_key), a.valid, b_full.column(b_key),
+                        b_full.valid, use_kernel=use_kernel)
+        out = _finish(a, b_full.columns, res, join_type, b_key)
+        out.partitioned_by = a.partitioned_by
+        rep = JoinReport(JoinMethod.BROADCAST_HASH, [ex],
+                         _local_bytes(a, b_full.count(), b_full.row_bytes, p,
+                                      build_replicated=True),
+                         out.count())
     return out, rep
 
 
@@ -111,14 +113,15 @@ def shuffle_hash_join(a: Table, b: Table, a_key: str, b_key: str,
     p = a.num_partitions
     a_sh, ex_a = shuffle(a, a_key, capacity_factor)
     b_sh, ex_b = shuffle(b, b_key, capacity_factor)
-    res = hash_join(a_sh.column(a_key), a_sh.valid, b_sh.column(b_key),
-                    b_sh.valid, use_kernel=use_kernel)
-    out = _finish(a_sh, b_sh.columns, res, join_type, b_key)
-    out.partitioned_by = a_key
-    rep = JoinReport(JoinMethod.SHUFFLE_HASH, [ex_a, ex_b],
-                     _local_bytes(a_sh, b_sh.count(), b_sh.row_bytes, p,
-                                  build_replicated=False),
-                     out.count())
+    with obs.span(obs.LOCAL_JOIN, "shuffle_hash"):
+        res = hash_join(a_sh.column(a_key), a_sh.valid, b_sh.column(b_key),
+                        b_sh.valid, use_kernel=use_kernel)
+        out = _finish(a_sh, b_sh.columns, res, join_type, b_key)
+        out.partitioned_by = a_key
+        rep = JoinReport(JoinMethod.SHUFFLE_HASH, [ex_a, ex_b],
+                         _local_bytes(a_sh, b_sh.count(), b_sh.row_bytes, p,
+                                      build_replicated=False),
+                         out.count())
     return out, rep
 
 
@@ -140,14 +143,15 @@ def salted_shuffle_hash_join(a: Table, b: Table, a_key: str, b_key: str,
     p = a.num_partitions
     a_sh, b_sh, ex_a, ex_b = salted_shuffle(a, a_key, b, b_key, salt_r,
                                             capacity_factor)
-    res = hash_join(a_sh.column(a_key), a_sh.valid, b_sh.column(b_key),
-                    b_sh.valid, use_kernel=use_kernel)
-    out = _finish(a_sh, b_sh.columns, res, join_type, b_key)
-    out.partitioned_by = None
-    rep = JoinReport(JoinMethod.SALTED_SHUFFLE_HASH, [ex_a, ex_b],
-                     _local_bytes(a_sh, b_sh.count(), b_sh.row_bytes, p,
-                                  build_replicated=False),
-                     out.count())
+    with obs.span(obs.LOCAL_JOIN, "salted_shuffle_hash"):
+        res = hash_join(a_sh.column(a_key), a_sh.valid, b_sh.column(b_key),
+                        b_sh.valid, use_kernel=use_kernel)
+        out = _finish(a_sh, b_sh.columns, res, join_type, b_key)
+        out.partitioned_by = None
+        rep = JoinReport(JoinMethod.SALTED_SHUFFLE_HASH, [ex_a, ex_b],
+                         _local_bytes(a_sh, b_sh.count(), b_sh.row_bytes, p,
+                                      build_replicated=False),
+                         out.count())
     return out, rep
 
 
@@ -158,20 +162,22 @@ def shuffle_sort_join(a: Table, b: Table, a_key: str, b_key: str,
     """Shuffle both sides by key; sort-merge join each co-partition."""
     a_sh, ex_a = shuffle(a, a_key, capacity_factor)
     b_sh, ex_b = shuffle(b, b_key, capacity_factor)
-    res = sort_join(a_sh.column(a_key), a_sh.valid, b_sh.column(b_key),
-                    b_sh.valid, use_kernel_sort=use_kernel)
-    out = _finish(a_sh, b_sh.columns, res, join_type, b_key)
-    out.partitioned_by = a_key
-    # Sort join's measured compute adds the n log n sort passes; we report
-    # the touched bytes (sort reads+writes both sides ~log passes).
-    a_rows, b_rows = a_sh.count(), b_sh.count()
-    pa = max(a_rows / a_sh.num_partitions, 1.0)
-    pb = max(b_rows / b_sh.num_partitions, 1.0)
-    sort_bytes = (a_rows * a_sh.row_bytes * math.log2(max(pa, 1.0) + 1)
-                  + b_rows * b_sh.row_bytes * math.log2(max(pb, 1.0) + 1))
-    merge_bytes = a_rows * a_sh.row_bytes + b_rows * b_sh.row_bytes
-    rep = JoinReport(JoinMethod.SHUFFLE_SORT, [ex_a, ex_b],
-                     float(sort_bytes + merge_bytes), out.count())
+    with obs.span(obs.LOCAL_JOIN, "shuffle_sort"):
+        res = sort_join(a_sh.column(a_key), a_sh.valid, b_sh.column(b_key),
+                        b_sh.valid, use_kernel_sort=use_kernel)
+        out = _finish(a_sh, b_sh.columns, res, join_type, b_key)
+        out.partitioned_by = a_key
+        # Sort join's measured compute adds the n log n sort passes; we
+        # report the touched bytes (sort reads+writes both sides ~log
+        # passes).
+        a_rows, b_rows = a_sh.count(), b_sh.count()
+        pa = max(a_rows / a_sh.num_partitions, 1.0)
+        pb = max(b_rows / b_sh.num_partitions, 1.0)
+        sort_bytes = (a_rows * a_sh.row_bytes * math.log2(max(pa, 1.0) + 1)
+                      + b_rows * b_sh.row_bytes * math.log2(max(pb, 1.0) + 1))
+        merge_bytes = a_rows * a_sh.row_bytes + b_rows * b_sh.row_bytes
+        rep = JoinReport(JoinMethod.SHUFFLE_SORT, [ex_a, ex_b],
+                         float(sort_bytes + merge_bytes), out.count())
     return out, rep
 
 
@@ -181,12 +187,15 @@ def broadcast_nl_join(a: Table, b: Table,
                       b_key: str = "") -> tuple[Table, JoinReport]:
     """Broadcast B; nested-loop each A partition against the replica."""
     b_full, ex = broadcast(b)
-    res = nested_loop_join(a.columns, a.valid, b_full.columns, b_full.valid,
-                           predicate)
-    out = _finish(a, b_full.columns, res, join_type, b_key)
-    nl_bytes = float(a.count() * a.row_bytes
-                     + a.count() * b_full.count() * b_full.row_bytes / 1.0)
-    rep = JoinReport(JoinMethod.BROADCAST_NL, [ex], nl_bytes, out.count())
+    with obs.span(obs.LOCAL_JOIN, "broadcast_nl"):
+        res = nested_loop_join(a.columns, a.valid, b_full.columns,
+                               b_full.valid, predicate)
+        out = _finish(a, b_full.columns, res, join_type, b_key)
+        nl_bytes = float(a.count() * a.row_bytes
+                         + a.count() * b_full.count() * b_full.row_bytes
+                         / 1.0)
+        rep = JoinReport(JoinMethod.BROADCAST_NL, [ex], nl_bytes,
+                         out.count())
     return out, rep
 
 
@@ -205,19 +214,21 @@ def cartesian_join(a: Table, b: Table,
     """
     p = a.num_partitions
     b_full, _ = broadcast(b)
-    res = nested_loop_join(a.columns, a.valid, b_full.columns, b_full.valid,
-                           predicate)
-    out = _finish(a, b_full.columns, res, join_type, b_key)
-    rows_b = b_full.count()
-    shuffle_like = ExchangeReport(
-        "shuffle",
-        network_bytes=(p - 1) / p * (a.count() * a.row_bytes
-                                     + rows_b * b_full.row_bytes),
-        local_bytes=(a.count() * a.row_bytes + rows_b * b_full.row_bytes) / p)
-    nl_bytes = float(a.count() * a.row_bytes
-                     + a.count() / p * rows_b * b_full.row_bytes)
-    rep = JoinReport(JoinMethod.CARTESIAN, [shuffle_like], nl_bytes,
-                     out.count())
+    with obs.span(obs.LOCAL_JOIN, "cartesian"):
+        res = nested_loop_join(a.columns, a.valid, b_full.columns,
+                               b_full.valid, predicate)
+        out = _finish(a, b_full.columns, res, join_type, b_key)
+        rows_b = b_full.count()
+        shuffle_like = ExchangeReport(
+            "shuffle",
+            network_bytes=(p - 1) / p * (a.count() * a.row_bytes
+                                         + rows_b * b_full.row_bytes),
+            local_bytes=(a.count() * a.row_bytes
+                         + rows_b * b_full.row_bytes) / p)
+        nl_bytes = float(a.count() * a.row_bytes
+                         + a.count() / p * rows_b * b_full.row_bytes)
+        rep = JoinReport(JoinMethod.CARTESIAN, [shuffle_like], nl_bytes,
+                         out.count())
     return out, rep
 
 
@@ -293,42 +304,45 @@ def hypercube_multiway_join(tables: list, spec: HypercubeSpec,
         shards.append(sh)
         exs.append(ex)
 
-    probe = shards[0]
-    cols = dict(probe.columns)
-    valid = probe.valid
+    with obs.span(obs.LOCAL_JOIN, "hypercube_shuffle"):
+        probe = shards[0]
+        cols = dict(probe.columns)
+        valid = probe.valid
 
-    fused = (use_kernel and len(spec.links) == 2
-             and all(lk.probe_col in probe.columns for lk in spec.links))
-    if fused:
-        l1, l2 = spec.links
-        b1, b2 = shards[l1.build], shards[l2.build]
-        idx1, idx2 = kops.probe3(
-            _sanitized(probe, l1.probe_col, A_SENTINEL),
-            _sanitized(probe, l2.probe_col, A_SENTINEL),
-            _sanitized(b1, l1.build_col, B_SENTINEL),
-            _sanitized(b2, l2.build_col, B_SENTINEL))
-        for b, idx in ((b1, idx1), (b2, idx2)):
-            _add_columns(cols, gather_rows(b.columns, idx.clamp(min=0))[0])
-            valid = valid & (idx >= 0)
-    else:
-        for lk in spec.links:
-            b = shards[lk.build]
-            res = hash_join(cols[lk.probe_col], valid, b.column(lk.build_col),
-                            b.valid, use_kernel=use_kernel)
-            _add_columns(cols, gather_rows(b.columns,
-                                           res.match_idx.clamp(min=0))[0])
-            valid = valid & res.found
+        fused = (use_kernel and len(spec.links) == 2
+                 and all(lk.probe_col in probe.columns for lk in spec.links))
+        if fused:
+            l1, l2 = spec.links
+            b1, b2 = shards[l1.build], shards[l2.build]
+            idx1, idx2 = kops.probe3(
+                _sanitized(probe, l1.probe_col, A_SENTINEL),
+                _sanitized(probe, l2.probe_col, A_SENTINEL),
+                _sanitized(b1, l1.build_col, B_SENTINEL),
+                _sanitized(b2, l2.build_col, B_SENTINEL))
+            for b, idx in ((b1, idx1), (b2, idx2)):
+                _add_columns(cols,
+                             gather_rows(b.columns, idx.clamp(min=0))[0])
+                valid = valid & (idx >= 0)
+        else:
+            for lk in spec.links:
+                b = shards[lk.build]
+                res = hash_join(cols[lk.probe_col], valid,
+                                b.column(lk.build_col), b.valid,
+                                use_kernel=use_kernel)
+                _add_columns(cols, gather_rows(b.columns,
+                                               res.match_idx.clamp(min=0))[0])
+                valid = valid & res.found
 
-    for c1, c2 in spec.checks:
-        valid = valid & (cols[c1] == cols[c2])
+        for c1, c2 in spec.checks:
+            valid = valid & (cols[c1] == cols[c2])
 
-    out = Table(cols, valid)
-    # Measured local workload mirrors the binary methods' convention: one
-    # probe pass over the (replicated) probe side, build + probe touch of
-    # each (replicated) build side.
-    local = float(probe.count() * probe.row_bytes
-                  + sum(2.0 * s.count() * s.row_bytes for s in shards[1:]))
-    rep = JoinReport(JoinMethod.HYPERCUBE_SHUFFLE, exs, local, out.count())
+        out = Table(cols, valid)
+        # Measured local workload mirrors the binary methods' convention: one
+        # probe pass over the (replicated) probe side, build + probe touch of
+        # each (replicated) build side.
+        local = float(probe.count() * probe.row_bytes
+                      + sum(2.0 * s.count() * s.row_bytes for s in shards[1:]))
+        rep = JoinReport(JoinMethod.HYPERCUBE_SHUFFLE, exs, local, out.count())
     return out, rep
 
 

@@ -18,6 +18,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from .. import obs
 from ..core.stats import StatsSource, TableStats
 
 
@@ -79,7 +80,8 @@ class Table:
 
     def count(self) -> int:
         """Number of valid rows (host sync)."""
-        return int(self.valid.sum())
+        with obs.sync("count"):
+            return int(self.valid.sum())
 
     def measure(self) -> TableStats:
         """Adaptive runtime statistic of this materialized dataset."""
@@ -149,15 +151,19 @@ def compact_partitions(table: Table, capacity: int | None = None,
     """
     if not table.stacked:
         raise ValueError("compact expects a stacked table")
-    need = int(table.valid.sum(dim=1).max())
-    cap = capacity or max(8, 1 << (max(int(need * slack), 1) - 1).bit_length())
-    cap = min(cap, table.capacity)
+    with obs.span(obs.COMPACT):
+        with obs.sync("compact"):
+            need = int(table.valid.sum(dim=1).max())
+        cap = capacity or max(
+            8, 1 << (max(int(need * slack), 1) - 1).bit_length())
+        cap = min(cap, table.capacity)
 
-    invalid = (~table.valid).to(torch.uint8)
-    order = torch.argsort(invalid, dim=1, stable=True)[:, :cap]
-    cols = {n: torch.gather(c, 1, order) for n, c in table.columns.items()}
-    valid = torch.gather(table.valid, 1, order)
-    return Table(cols, valid, table.partitioned_by)
+        invalid = (~table.valid).to(torch.uint8)
+        order = torch.argsort(invalid, dim=1, stable=True)[:, :cap]
+        cols = {n: torch.gather(c, 1, order)
+                for n, c in table.columns.items()}
+        valid = torch.gather(table.valid, 1, order)
+        return Table(cols, valid, table.partitioned_by)
 
 
 def concat_partitions(table: Table) -> Table:

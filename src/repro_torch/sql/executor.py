@@ -44,10 +44,11 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 
+from .. import obs
 from ..core.cost_model import (BLOOM_DEFAULT_BITS_PER_KEY,
                                DEFAULT_REOPT_QERROR, CostParams, JoinMethod,
                                filter_reduce_cost, runtime_filter_cost)
@@ -384,21 +385,23 @@ class Executor:
             # other catalog are invalidated before planning.
             self.filter_cache.sync(self.catalog)
         if self.verify:
-            self._gate(analyze_plan(plan, self._schema,
-                                    catalog_dtypes(self.catalog)))
+            self._gate(lambda: analyze_plan(plan, self._schema,
+                                            catalog_dtypes(self.catalog)))
         if self.reorder:
             rewritten = prune_projections(
                 push_down_filters(plan, self._schema), self._schema)
             if self.verify:
-                self._gate(check_schema_preserved(plan, rewritten,
-                                                  self._schema))
-                self._gate(analyze_plan(rewritten, self._schema,
-                                        catalog_dtypes(self.catalog)))
+                self._gate(lambda: check_schema_preserved(plan, rewritten,
+                                                          self._schema))
+                self._gate(lambda: analyze_plan(rewritten, self._schema,
+                                                catalog_dtypes(self.catalog)))
             plan = rewritten
         t0 = time.perf_counter()
-        ann = self._eval(plan)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        with obs.span(obs.QUERY):
+            ann = self._eval(plan)
+            if self.device.type == "cuda":
+                with obs.sync("query"):
+                    torch.cuda.synchronize(self.device)
         dt = time.perf_counter() - t0
         net = sum(d.network_bytes for d in self._decisions)
         net += sum(f.network_bytes for f in self._filters)
@@ -409,7 +412,10 @@ class Executor:
                                filters=self._filters, reopts=self._reopts,
                                cardinalities=self._cards)
 
-    def _gate(self, violations: List[Violation]) -> None:
+    def _gate(self, analysis: Callable[[], List[Violation]]) -> None:
+        """Run one plan analysis; raise on any violation."""
+        with obs.span(obs.VERIFY):
+            violations = analysis()
         if violations:
             raise PlanVerificationError(violations)
 
@@ -430,41 +436,44 @@ class Executor:
                 measured = shared.measure()
                 return _Annotated(shared, measured, measured)
         if isinstance(node, Scan):
-            t = self.catalog.table(node.table)
-            measured = t.measure()
-            est = TableStats(measured.size_bytes * self.est_error,
-                             measured.cardinality * self.est_error,
-                             StatsSource.ESTIMATED)
-            return _Annotated(t, measured, est)
+            with obs.span(obs.OP_SCAN):
+                t = self.catalog.table(node.table)
+                measured = t.measure()
+                est = TableStats(measured.size_bytes * self.est_error,
+                                 measured.cardinality * self.est_error,
+                                 StatsSource.ESTIMATED)
+                return _Annotated(t, measured, est)
 
         if isinstance(node, Filter):
-            if node.op == "eqcol" and self.reorder and self.hypercube:
-                # Closing edge(s) of a possibly-cyclic region: quote the
-                # hypercube multi-way shuffle against the best binary tree.
-                ann = self._try_hypercube(node)
-                if ann is not None:
-                    return ann
-            child = self._eval(node.child)
-            t = _apply_filter(child.table, node)
-            # In-stage operator: runtime stats are *propagated estimates*
-            # from the last materialization (paper §4.1 step 2). The
-            # catalog's per-column histograms, when present, beat both the
-            # declared selectivity and the uniform-domain fractions.
-            sel = derive_selectivity(node, self.catalog.key_domains,
-                                     self.catalog.column_stats or None)
-            measured = estimate_filter(child.measured, sel)
-            est = estimate_filter(child.estimated, sel)
-            return _Annotated(t, measured, est)
+            with obs.span(obs.OP_FILTER):
+                if node.op == "eqcol" and self.reorder and self.hypercube:
+                    # Closing edge(s) of a possibly-cyclic region: quote the
+                    # hypercube multi-way shuffle against the best binary tree.
+                    ann = self._try_hypercube(node)
+                    if ann is not None:
+                        return ann
+                child = self._eval(node.child)
+                t = _apply_filter(child.table, node)
+                # In-stage operator: runtime stats are *propagated estimates*
+                # from the last materialization (paper §4.1 step 2). The
+                # catalog's per-column histograms, when present, beat both the
+                # declared selectivity and the uniform-domain fractions.
+                sel = derive_selectivity(node, self.catalog.key_domains,
+                                         self.catalog.column_stats or None)
+                measured = estimate_filter(child.measured, sel)
+                est = estimate_filter(child.estimated, sel)
+                return _Annotated(t, measured, est)
 
         if isinstance(node, Project):
-            child = self._eval(node.child)
-            t = child.table.select(node.columns)
-            frac = t.row_bytes / max(child.table.row_bytes, 1)
-            m, e = child.measured, child.estimated
-            return _Annotated(
-                t,
-                TableStats(m.size_bytes * frac, m.cardinality, m.source),
-                TableStats(e.size_bytes * frac, e.cardinality, e.source))
+            with obs.span(obs.OP_PROJECT):
+                child = self._eval(node.child)
+                t = child.table.select(node.columns)
+                frac = t.row_bytes / max(child.table.row_bytes, 1)
+                m, e = child.measured, child.estimated
+                return _Annotated(
+                    t,
+                    TableStats(m.size_bytes * frac, m.cardinality, m.source),
+                    TableStats(e.size_bytes * frac, e.cardinality, e.source))
 
         if isinstance(node, Join):
             if self.reorder or self.runtime_filters:
@@ -474,53 +483,56 @@ class Executor:
                 graph = extract_join_graph(node, self._schema)
                 if graph is not None and graph.n >= 3:
                     return self._eval_region(graph)
-            left = self._eval(node.left)
-            right = self._eval(node.right)
-            # Exchange boundary: re-measure both inputs (adaptive runtime
-            # statistics). Non-adaptive mode keeps static estimates.
-            lstats = self._boundary_stats(left, node.left)
-            rstats = self._boundary_stats(right, node.right)
-            spill = None
-            if (self.runtime_filters and node.hint is None
-                    and node.join_type in _FILTERABLE_TYPES):
-                before = left
-                left, lstats = self._filter_pair(left, lstats, right, rstats,
-                                                 node)
-                if (node.join_type is JoinType.LEFT_OUTER
-                        and left is not before):
-                    # Padding path: the rows the filter dropped are exactly
-                    # the probe rows with no build match — capture them so
-                    # they can re-enter the result null-padded.
-                    spill = before.table.with_valid(before.table.valid
-                                                    & ~left.table.valid)
-            out = self._join(left, right, lstats, rstats, node.left_key,
-                             node.right_key, node.join_type, node.hint,
-                             retain=self._retain(node.right))
-            if spill is not None:
-                out = self._pad_outer_rows(out, spill)
-            return out
+            with obs.span(obs.OP_JOIN):
+                left = self._eval(node.left)
+                right = self._eval(node.right)
+                # Exchange boundary: re-measure both inputs (adaptive runtime
+                # statistics). Non-adaptive mode keeps static estimates.
+                lstats = self._boundary_stats(left, node.left)
+                rstats = self._boundary_stats(right, node.right)
+                spill = None
+                if (self.runtime_filters and node.hint is None
+                        and node.join_type in _FILTERABLE_TYPES):
+                    before = left
+                    left, lstats = self._filter_pair(left, lstats, right,
+                                                     rstats, node)
+                    if (node.join_type is JoinType.LEFT_OUTER
+                            and left is not before):
+                        # Padding path: the rows the filter dropped are
+                        # exactly the probe rows with no build match —
+                        # capture them so they can re-enter the result
+                        # null-padded.
+                        spill = before.table.with_valid(before.table.valid
+                                                        & ~left.table.valid)
+                out = self._join(left, right, lstats, rstats, node.left_key,
+                                 node.right_key, node.join_type, node.hint,
+                                 retain=self._retain(node.right))
+                if spill is not None:
+                    out = self._pad_outer_rows(out, spill)
+                return out
 
         if isinstance(node, Aggregate):
-            child = self._eval(node.child)
-            out, _rep = self._run_agg_with_retry(child.table, node.key,
-                                                 node.aggs)
-            if self.compact:
-                out = compact_partitions(out)
-            measured = out.measure()
-            cs = self.catalog.column_stats.get(node.key)
-            if cs is not None and cs.count > 0:
-                # Group-count estimate from the catalog's measured NDV —
-                # a genuine prediction, so it enters the q-error trail.
-                est = estimate_group_by(child.estimated, max(cs.ndv, 1.0))
-                self._cards.append(CardinalityRecord(
-                    "aggregate", est.cardinality, measured.cardinality))
-            else:
-                # No histogram for the group key: fall back to the measured
-                # group count — not a prediction, so it stays out of the
-                # q-error trail.
-                est = estimate_group_by(child.estimated,
-                                        measured.cardinality or 1)
-            return _Annotated(out, measured, est)
+            with obs.span(obs.OP_AGGREGATE):
+                child = self._eval(node.child)
+                out, _rep = self._run_agg_with_retry(child.table, node.key,
+                                                     node.aggs)
+                if self.compact:
+                    out = compact_partitions(out)
+                measured = out.measure()
+                cs = self.catalog.column_stats.get(node.key)
+                if cs is not None and cs.count > 0:
+                    # Group-count estimate from the catalog's measured NDV —
+                    # a genuine prediction, so it enters the q-error trail.
+                    est = estimate_group_by(child.estimated, max(cs.ndv, 1.0))
+                    self._cards.append(CardinalityRecord(
+                        "aggregate", est.cardinality, measured.cardinality))
+                else:
+                    # No histogram for the group key: fall back to the measured
+                    # group count — not a prediction, so it stays out of the
+                    # q-error trail.
+                    est = estimate_group_by(child.estimated,
+                                            measured.cardinality or 1)
+                return _Annotated(out, measured, est)
 
         raise TypeError(f"unknown plan node {type(node)}")
 
@@ -561,22 +573,24 @@ class Executor:
                      node: Join):
         """Plan + apply a runtime filter for a single (non-region) join:
         the probe table is masked before the join's exchange."""
-        sigma = self._leaf_sigma(node.right, rstats, node.right_key)
-        edge = JoinEdge(0, 1, node.left_key, node.right_key)
-        plan = plan_runtime_filters([edge], [lstats, rstats], [1.0, sigma],
-                                    self._params, self.filter_bits_per_key,
-                                    leaves=[node.left, node.right],
-                                    kinds=self.filter_kinds,
-                                    cache=self.filter_cache)
+        with obs.span(obs.FILTERS_PLAN):
+            sigma = self._leaf_sigma(node.right, rstats, node.right_key)
+            edge = JoinEdge(0, 1, node.left_key, node.right_key)
+            plan = plan_runtime_filters([edge], [lstats, rstats],
+                                        [1.0, sigma], self._params,
+                                        self.filter_bits_per_key,
+                                        leaves=[node.left, node.right],
+                                        kinds=self.filter_kinds,
+                                        cache=self.filter_cache)
         if not plan:
             return left, lstats
         if self.verify:
             # The executor compensates LEFT_OUTER placements via the
             # padding path in _eval — that's what licenses F1 here.
             padded = node.join_type is JoinType.LEFT_OUTER
-            self._gate(check_filter_placement(plan[0], node.join_type,
-                                              padded=padded)
-                       + check_filter_quote(plan[0]))
+            self._gate(lambda: check_filter_placement(plan[0], node.join_type,
+                                                      padded=padded)
+                               + check_filter_quote(plan[0]))
         left = self._apply_runtime_filter(plan[0], left, right.table,
                                           node.right)
         return left, self._boundary_stats(left, node.left)
@@ -586,23 +600,25 @@ class Executor:
         statistics and apply them at the probe *leaves* — below every
         exchange of the region — then re-measure, so every selection runs
         on post-filter cardinalities."""
-        sigmas = [1.0] * graph.n
-        for e in edges:
-            sigmas[e.build] = self._leaf_sigma(graph.leaves[e.build],
-                                               stats[e.build], e.build_key)
-        plan = plan_runtime_filters(edges, stats, sigmas, self._params,
-                                    self.filter_bits_per_key,
-                                    leaves=graph.leaves,
-                                    kinds=self.filter_kinds,
-                                    cache=self.filter_cache)
+        with obs.span(obs.FILTERS_PLAN):
+            sigmas = [1.0] * graph.n
+            for e in edges:
+                sigmas[e.build] = self._leaf_sigma(graph.leaves[e.build],
+                                                   stats[e.build],
+                                                   e.build_key)
+            plan = plan_runtime_filters(edges, stats, sigmas, self._params,
+                                        self.filter_bits_per_key,
+                                        leaves=graph.leaves,
+                                        kinds=self.filter_kinds,
+                                        cache=self.filter_cache)
         masked = set()   # leaves already masked by an earlier filter
         for rf in plan:
             if self.verify:
                 # Region edges are INNER by construction (extract_join_graph
                 # only walks inner joins), so placement is always safe —
                 # the gate still runs to catch a future loosening.
-                self._gate(check_filter_placement(rf, JoinType.INNER)
-                           + check_filter_quote(rf))
+                self._gate(lambda: check_filter_placement(rf, JoinType.INNER)
+                                   + check_filter_quote(rf))
             # A build leaf that was itself a probe target earlier in this
             # region no longer matches its static predicate chain — its
             # payload is narrowed by *this query's* other filters and must
@@ -632,38 +648,41 @@ class Executor:
         payload = None
         ck = None
         if self.filter_cache is not None:
-            ck = filter_cache_key(build_leaf, rf.build_key, rf.kind,
-                                  rf.m_bits, rf.k)
-            payload = self.filter_cache.lookup(ck)
+            with obs.span(obs.FILTERS_PLAN):
+                ck = filter_cache_key(build_leaf, rf.build_key, rf.kind,
+                                      rf.m_bits, rf.k)
+                payload = self.filter_cache.lookup(ck)
         cached = payload is not None
         if cached and self.verify and ck is not None:
             # F3 reuse side: the cache keys payloads by (chain, key, kind,
             # shape), so a hit's stored chain must be subset-safe for this
             # edge's chain.
-            self._gate(check_cache_reuse((ck[0], ck[1]),
-                                         predicate_chain(build_leaf)))
+            self._gate(lambda: check_cache_reuse((ck[0], ck[1]),
+                                                 predicate_chain(build_leaf)))
         if payload is None:
-            payload = build_filter_payload(rf, build)
+            with obs.span(obs.FILTERS_BUILD):
+                payload = build_filter_payload(rf, build)
             if self.filter_cache is not None and cacheable:
                 if self.verify:
                     # F3 store side: only chain-faithful payloads may enter
                     # the cross-query cache.
-                    self._gate(check_cache_store(
+                    self._gate(lambda: check_cache_store(
                         predicate_chain(build_leaf),
                         build_masked=not cacheable))
                 # Store the materialized build table's measurement: the
                 # payload was just built from the real rows, so the true
                 # cardinality is free.
                 self.filter_cache.store(ck, payload, build.measure())
-        keep = probe_filter_mask(rf, payload,
-                                 probe.table.column(rf.probe_key))
+        with obs.span(obs.FILTERS_PROBE):
+            keep = probe_filter_mask(rf, payload,
+                                     probe.table.column(rf.probe_key))
         table = probe.table.with_valid(probe.table.valid & keep)
         measured = table.measure()
         decision = FilterDecision(rf, probe.table.count(),
                                   int(measured.cardinality),
                                   self.p, cached=cached)
         if self.verify:
-            self._gate(audit_filter_decision(decision))
+            self._gate(lambda: audit_filter_decision(decision))
         self._filters.append(decision)
         return _Annotated(table, measured,
                           probe.estimated.scaled(rf.keep_est))
@@ -714,89 +733,98 @@ class Executor:
         remaining join graph and the DP re-runs on the remainder — even
         when the written (left-deep) order was standing until then.
         """
-        anns = [self._eval(leaf) for leaf in graph.leaves]
-        stats = [self._boundary_stats(a, l)
-                 for a, l in zip(anns, graph.leaves)]
-        retain = [self._retain(l) for l in graph.leaves]
-        edges = augment_edges(graph)
-        if self.runtime_filters:
-            anns, stats = self._region_filters(graph, anns, stats, edges)
-        if not self.reorder:
-            # Filter-only strategies keep the written join order.
-            return self._exec_region_tree(graph.tree, graph, anns, retain)
-        plan_cost = modeled_tree_cost(graph, stats, retain, self._params)
-        order = enumerate_join_order(stats, retain, edges, self._params)
-        use_dp = order is not None and order.cost < plan_cost * (1 - 1e-9)
-        written = (self._linear_steps(graph)
-                   if self.reopt and not use_dp else None)
-        if not use_dp and written is None:
-            # Written order stands and no checkpointing is possible (reopt
-            # off, or a bushy written tree): execute the tree as-is.
-            return self._exec_region_tree(graph.tree, graph, anns, retain)
-        if use_dp:
-            first = order.first
-            fallback = [(s.build, None) for s in order.steps]
-        else:
-            first, fallback = written
-        # Until a checkpoint triggers, a standing written order is executed
-        # verbatim (no step-wise re-plan: that could silently deviate from
-        # the order the DP just declared non-improvable).
-        replanning = use_dp
-        cur = anns[first]
-        cur_stats = stats[first]
-        joined = {first}
-        boundary = 0
-        while len(joined) < graph.n:
-            rest = [i for i in range(graph.n) if i not in joined]
-            step = (self._replan_step(cur_stats, joined, rest, stats,
-                                      retain, edges)
-                    if replanning else None)
-            if step is None:
-                step = self._fallback_step(fallback, joined, edges)
-            if self.verify:
-                # R1: adaptive re-plans only follow real join-graph edges.
-                self._gate(check_replan_step(step, joined, edges))
-            b = step.build
-            # What the optimizer believes this boundary will produce —
-            # the estimate the checkpoint audits against.
-            predicted = estimate_join(cur_stats, stats[b],
-                                      fk_selectivity=retain[b])
-            cur = self._join(cur, anns[b], cur_stats, stats[b],
-                             step.probe_key, step.build_key, JoinType.INNER,
-                             None, retain=retain[b])
-            joined.add(b)
-            next_stats = cur.measured if self.adaptive else cur.estimated
-            if self.reopt:
-                q = q_error(predicted.cardinality,
-                            cur.measured.cardinality)
-                triggered = q > self.reopt_qerror
-                # Continuation under the *unfolded* policy, for the audit
-                # trail (R2: a non-trigger must not change it).
-                old_next = self._peek_next(replanning, next_stats, joined,
-                                           stats, retain, edges, fallback)
-                if triggered:
-                    # Checkpoint: the intermediate is already materialized
-                    # (every boundary materializes); fold its measured
-                    # stats into the remaining join graph and re-run the
-                    # DP on the remainder.
-                    next_stats = cur.measured
-                    replanning = True
-                    new_next = self._peek_next(True, next_stats, joined,
-                                               stats, retain, edges,
-                                               fallback)
-                else:
-                    new_next = old_next
-                dec = ReoptDecision(boundary, predicted, cur.measured,
-                                    self.reopt_qerror, q, triggered,
-                                    old_next, new_next)
+        with obs.span(obs.OP_REGION):
+            anns = [self._eval(leaf) for leaf in graph.leaves]
+            stats = [self._boundary_stats(a, l)
+                     for a, l in zip(anns, graph.leaves)]
+            retain = [self._retain(l) for l in graph.leaves]
+            edges = augment_edges(graph)
+            if self.runtime_filters:
+                anns, stats = self._region_filters(graph, anns, stats, edges)
+            if not self.reorder:
+                # Filter-only strategies keep the written join order.
+                return self._exec_region_tree(graph.tree, graph, anns, retain)
+            with obs.span(obs.REPLAN):
+                plan_cost = modeled_tree_cost(graph, stats, retain,
+                                              self._params)
+                order = enumerate_join_order(stats, retain, edges,
+                                             self._params)
+                use_dp = (order is not None
+                          and order.cost < plan_cost * (1 - 1e-9))
+                written = (self._linear_steps(graph)
+                           if self.reopt and not use_dp else None)
+            if not use_dp and written is None:
+                # Written order stands and no checkpointing is possible (reopt
+                # off, or a bushy written tree): execute the tree as-is.
+                return self._exec_region_tree(graph.tree, graph, anns, retain)
+            if use_dp:
+                first = order.first
+                fallback = [(s.build, None) for s in order.steps]
+            else:
+                first, fallback = written
+            # Until a checkpoint triggers, a standing written order is executed
+            # verbatim (no step-wise re-plan: that could silently deviate from
+            # the order the DP just declared non-improvable).
+            replanning = use_dp
+            cur = anns[first]
+            cur_stats = stats[first]
+            joined = {first}
+            boundary = 0
+            while len(joined) < graph.n:
+                with obs.span(obs.REPLAN):
+                    rest = [i for i in range(graph.n) if i not in joined]
+                    step = (self._replan_step(cur_stats, joined, rest, stats,
+                                              retain, edges)
+                            if replanning else None)
+                    if step is None:
+                        step = self._fallback_step(fallback, joined, edges)
                 if self.verify:
-                    # R2: trigger iff threshold exceeded; non-triggered
-                    # checkpoints leave the continuation untouched.
-                    self._gate(check_reopt_decision(dec))
-                self._reopts.append(dec)
-            cur_stats = next_stats
-            boundary += 1
-        return cur
+                    # R1: adaptive re-plans only follow real join-graph edges.
+                    self._gate(lambda: check_replan_step(step, joined, edges))
+                b = step.build
+                # What the optimizer believes this boundary will produce —
+                # the estimate the checkpoint audits against.
+                predicted = estimate_join(cur_stats, stats[b],
+                                          fk_selectivity=retain[b])
+                cur = self._join(cur, anns[b], cur_stats, stats[b],
+                                 step.probe_key, step.build_key,
+                                 JoinType.INNER, None, retain=retain[b])
+                joined.add(b)
+                next_stats = cur.measured if self.adaptive else cur.estimated
+                if self.reopt:
+                    q = q_error(predicted.cardinality,
+                                cur.measured.cardinality)
+                    triggered = q > self.reopt_qerror
+                    # Continuation under the *unfolded* policy, for the audit
+                    # trail (R2: a non-trigger must not change it).
+                    with obs.span(obs.REPLAN):
+                        old_next = self._peek_next(replanning, next_stats,
+                                                   joined, stats, retain,
+                                                   edges, fallback)
+                    if triggered:
+                        # Checkpoint: the intermediate is already materialized
+                        # (every boundary materializes); fold its measured
+                        # stats into the remaining join graph and re-run the
+                        # DP on the remainder.
+                        next_stats = cur.measured
+                        replanning = True
+                        with obs.span(obs.REPLAN):
+                            new_next = self._peek_next(True, next_stats,
+                                                       joined, stats, retain,
+                                                       edges, fallback)
+                    else:
+                        new_next = old_next
+                    dec = ReoptDecision(boundary, predicted, cur.measured,
+                                        self.reopt_qerror, q, triggered,
+                                        old_next, new_next)
+                    if self.verify:
+                        # R2: trigger iff threshold exceeded; non-triggered
+                        # checkpoints leave the continuation untouched.
+                        self._gate(lambda: check_reopt_decision(dec))
+                    self._reopts.append(dec)
+                cur_stats = next_stats
+                boundary += 1
+            return cur
 
     def _linear_steps(self, graph):
         """``(first leaf, [(build leaf, edge), ...])`` of a left-deep
@@ -945,9 +973,10 @@ class Executor:
         build = max(hp.order[1:], key=lambda i: stats[i].size_bytes)
         props = JoinProperties()
         if self.verify:
-            self._gate(audit_selection(hp.selection, stats[probe],
-                                       stats[build], props, self._params))
-            self._gate(audit_exchanges(hp.selection, props, rep))
+            self._gate(lambda: audit_selection(hp.selection, stats[probe],
+                                               stats[build], props,
+                                               self._params))
+            self._gate(lambda: audit_exchanges(hp.selection, props, rep))
         self._decisions.append(JoinDecision(hp.selection, stats[probe],
                                             stats[build], rep, props=props))
         est = anns[probe].estimated
@@ -998,13 +1027,14 @@ class Executor:
             if right.table.partitioned_by != rk:
                 rstats = rstats.with_skew(
                     key_skew(right.table, rk, self.p, self.skew_floor))
-        sel = self.strategy.select(lstats, rstats, props, self.p)
-        sel = self._engine_feasible(sel, lstats, rstats, props)
+        with obs.span(obs.SELECT):
+            sel = self.strategy.select(lstats, rstats, props, self.p)
+            sel = self._engine_feasible(sel, lstats, rstats, props)
         if self.verify:
             # Pre-run cost audit (C1/C2/S1): a bad selection is caught
             # before any bytes move.
-            self._gate(audit_selection(sel, lstats, rstats, props,
-                                       self._params))
+            self._gate(lambda: audit_selection(sel, lstats, rstats, props,
+                                               self._params))
         out, rep = self._run_join_with_retry(sel, left.table, right.table,
                                              lk, rk, join_type.value)
         if self.compact:
@@ -1012,7 +1042,7 @@ class Executor:
         if self.verify:
             # Post-run exchange audit (E1/E2): every elision proven
             # necessary, every proven partitioning actually elided.
-            self._gate(audit_exchanges(sel, props, rep))
+            self._gate(lambda: audit_exchanges(sel, props, rep))
         self._decisions.append(JoinDecision(sel, lstats, rstats, rep,
                                             props=props))
         measured = out.measure()

@@ -50,6 +50,7 @@ from typing import Deque, Dict, List, Optional, Tuple, Union
 
 import torch
 
+from .. import obs
 from ..core.cost_model import CostParams
 from ..joins.table import Table
 from .binder import parse_sql
@@ -104,12 +105,6 @@ class BatchReport:
         (whose injected subtrees moved zero bytes)."""
         return (sum(s.result.network_bytes for s in self.shared)
                 + sum(r.network_bytes for r in self.results.values()))
-
-    @property
-    def queries_per_second(self) -> float:
-        if self.wall_time_s <= 0:
-            return float("inf")
-        return len(self.results) / self.wall_time_s
 
 
 class AdmissionController:
@@ -200,29 +195,33 @@ class QueryService:
                name: Optional[str] = None) -> Submission:
         """Admit one query (SQL text or logical plan): lower, compile (or
         hit the plan cache), quote, enqueue."""
-        plan = parse_sql(query) if isinstance(query, str) else query
-        hits_before = self.plan_cache.hits
-        optimized = self._optimize(plan, plan_cache=self.plan_cache)
-        sub = Submission(
-            qid=self._qid,
-            name=name if name is not None else f"q{self._qid}",
-            plan=plan,
-            optimized=optimized,
-            quoted_cost=modeled_plan_cost(optimized.plan, self._base_stats,
+        with obs.span(obs.SUBMIT):
+            plan = parse_sql(query) if isinstance(query, str) else query
+            hits_before = self.plan_cache.hits
+            optimized = self._optimize(plan, plan_cache=self.plan_cache)
+            with obs.span(obs.QUOTE):
+                quote = modeled_plan_cost(optimized.plan, self._base_stats,
                                           self._schema, self._params,
-                                          self.catalog.key_domains),
-            plan_cached=self.plan_cache.hits > hits_before)
-        self._qid += 1
-        self.admission.submit(sub)
-        return sub
+                                          self.catalog.key_domains)
+            sub = Submission(
+                qid=self._qid,
+                name=name if name is not None else f"q{self._qid}",
+                plan=plan,
+                optimized=optimized,
+                quoted_cost=quote,
+                plan_cached=self.plan_cache.hits > hits_before)
+            self._qid += 1
+            self.admission.submit(sub)
+            return sub
 
     def _optimize(self, plan: Node,
                   plan_cache: Optional[PlanCache] = None) -> OptimizedPlan:
         # prune=False: projection pruning would specialize shared subtrees
         # per consumer column set and defeat CSE (module docstring).
-        return optimize(plan, self.catalog, params=self._params,
-                        prune=False, verify=self.verify,
-                        plan_cache=plan_cache)
+        with obs.span(obs.OPTIMIZE):
+            return optimize(plan, self.catalog, params=self._params,
+                            prune=False, verify=self.verify,
+                            plan_cache=plan_cache)
 
     def _executor(self, intermediates: Optional[Dict[str, Table]] = None
                   ) -> Executor:
@@ -241,39 +240,43 @@ class QueryService:
         return reports
 
     def _execute_batch(self, batch: List[Submission]) -> BatchReport:
-        t0 = time.perf_counter()
-        intermediates: Dict[str, Table] = {}
-        shared: List[SharedSubtree] = []
-        if self.cse:
-            # Count every candidate occurrence across the batch (intra-query
-            # duplicates count too — two occurrences in one plan still share).
-            info: Dict[str, list] = {}
+        with obs.span(obs.BATCH):
+            t0 = time.perf_counter()
+            intermediates: Dict[str, Table] = {}
+            shared: List[SharedSubtree] = []
+            if self.cse:
+                # Count every candidate occurrence across the batch
+                # (intra-query duplicates count too — two occurrences in one
+                # plan still share).
+                info: Dict[str, list] = {}
+                with obs.span(obs.CSE):
+                    for sub in batch:
+                        for sig, node in shared_subtree_candidates(
+                                sub.optimized.plan):
+                            entry = info.setdefault(sig, [node, 0, []])
+                            entry[1] += 1
+                            if sub.name not in entry[2]:
+                                entry[2].append(sub.name)
+                shared_sigs = [s for s, e in info.items() if e[1] >= 2]
+                # Producers run smallest-first so a shared subtree nested
+                # inside a larger shared subtree is already injectable when
+                # the larger one executes.
+                for sig in sorted(shared_sigs,
+                                  key=lambda s: subtree_size(info[s][0])):
+                    node, count, consumers = info[sig]
+                    res = self._executor(intermediates).execute(node)
+                    intermediates[sig] = res.table
+                    shared.append(SharedSubtree(sig, node, tuple(consumers),
+                                                count, res))
+            results: Dict[str, ExecutionResult] = {}
             for sub in batch:
-                for sig, node in shared_subtree_candidates(
-                        sub.optimized.plan):
-                    entry = info.setdefault(sig, [node, 0, []])
-                    entry[1] += 1
-                    if sub.name not in entry[2]:
-                        entry[2].append(sub.name)
-            shared_sigs = [s for s, e in info.items() if e[1] >= 2]
-            # Producers run smallest-first so a shared subtree nested inside
-            # a larger shared subtree is already injectable when the larger
-            # one executes.
-            for sig in sorted(shared_sigs,
-                              key=lambda s: subtree_size(info[s][0])):
-                node, count, consumers = info[sig]
-                res = self._executor(intermediates).execute(node)
-                intermediates[sig] = res.table
-                shared.append(SharedSubtree(sig, node, tuple(consumers),
-                                            count, res))
-        results: Dict[str, ExecutionResult] = {}
-        for sub in batch:
-            results[sub.name] = self._executor(intermediates).execute(
-                sub.optimized.plan)
-        if self.device.type == "cuda":
-            # The host clock reads the work done, not the work queued.
-            torch.cuda.synchronize(self.device)
-        return BatchReport(results, shared, time.perf_counter() - t0)
+                results[sub.name] = self._executor(intermediates).execute(
+                    sub.optimized.plan)
+            if self.device.type == "cuda":
+                # The host clock reads the work done, not the work queued.
+                with obs.sync("batch"):
+                    torch.cuda.synchronize(self.device)
+            return BatchReport(results, shared, time.perf_counter() - t0)
 
     def execute_solo(self, query: Union[str, Node]) -> ExecutionResult:
         """Reference single-query execution: same optimizer settings, but
