@@ -26,7 +26,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    both branches, n from 0 to 2^24 across its one-block limit, all, none
    and half valid, one valid key at either int32 end, on views, from two
    streams at once and interleaved with the histogram and the bloom build
-   on one stream);
+   on one stream; the row mover bit for bit, ``valid`` too, at the
+   exchange's and compaction's SF1 shapes, on a replica with zero fill, on
+   a tile's ragged edge in every element width, with more columns than
+   one launch carries, on an index of -1 only and on a 1-D index);
 4. the main path: q1-q12 under the four default strategies on
    ``generate(scale, p=8, seed=0)`` on the card: one warm-up pass, then the
    reported pass, with every launch count set to 0 just before and read
@@ -1034,6 +1037,115 @@ def check_key_range_edge_cases(dev) -> None:
           f"the edge cases {took}")
 
 
+#: The mover's cases (``move_rows_cases``), by name.
+MOVE_CASES = ("exchange_sf1", "compact_sf1", "merge_replica_outer",
+              "ragged_edge", "many_columns", "all_invalid", "one_dim")
+#: TPC-DS SF1's store_sales over p = 8 partitions, as ``sf1.adhoc`` holds
+#: it: 2,880,404 rows, 23 columns.
+SF1_STORE_SALES = dict(p=8, cap=360_051, ncols=23)
+
+
+def move_rows_case(name: str, dev):
+    """``(columns, idx, zero_fill)`` of one of ``MOVE_CASES`` on ``dev``:
+    the exchange's and compaction's shapes at SF1 (the index as
+    ``slot_scatter`` and ``compact_partitions`` leave it: a strided view,
+    int32 and int64), the payload merge of a replica with zero fill, a
+    tile's ragged edge in every element width, more columns than one
+    launch carries, an index of -1 only and a 1-D index."""
+    import numpy as np
+    import torch
+
+    from repro_torch.joins.slots import pair_capacity, slot_scatter
+
+    g = np.random.default_rng(MOVE_CASES.index(name))
+
+    def cols(shape, n, kinds=("i", "f")):
+        out = {}
+        for k in range(n):
+            kind = kinds[k % len(kinds)]
+            a = {"i": lambda: g.integers(-2 ** 31, 2 ** 31 - 1, shape,
+                                         dtype=np.int64).astype(np.int32),
+                 "f": lambda: g.standard_normal(shape).astype(np.float32),
+                 "b": lambda: g.random(shape) < 0.5,
+                 "l": lambda: g.integers(-2 ** 62, 2 ** 62, shape)}[kind]()
+            out[f"c{k}"] = torch.from_numpy(a).to(dev)
+        return out
+
+    def index(shape, n_rows, dead=0.3):
+        i = g.integers(0, n_rows, shape)
+        i[g.random(shape) < dead] = -1
+        return torch.from_numpy(i.astype(np.int32)).to(dev)
+
+    p, cap, ncols = (SF1_STORE_SALES[k] for k in ("p", "cap", "ncols"))
+    if name in ("exchange_sf1", "compact_sf1"):
+        valid = torch.from_numpy(g.random((p, cap)) < (
+            0.999 if name == "exchange_sf1" else 0.5)).to(dev)
+        if name == "exchange_sf1":
+            dest = torch.from_numpy(g.integers(0, p, (p, cap)).astype(
+                np.int32)).to(dev)
+            idx = slot_scatter(dest, valid, p, pair_capacity(cap, p)).idx
+        else:
+            keep = 1 << (int(valid.sum(dim=1).max()) - 1).bit_length()
+            idx = torch.argsort((~valid).to(torch.uint8), dim=1,
+                                stable=True)[:, :keep]
+        return cols((p, cap), ncols), idx, False
+    if name == "merge_replica_outer":
+        return cols((18_000,), 6, "ifb"), index((p, cap), 18_000), True
+    if name == "ragged_edge":
+        return (cols((3, 1_000), 4, "bilf"), index((3, 5, 1_371), 1_000),
+                False)
+    if name == "many_columns":
+        return cols((p, 10_007), 70), index((p, 10_007), 10_007), True
+    if name == "all_invalid":
+        return (cols((p, 4_099), 3, "ifl"),
+                torch.full((p, 2, 4_099), -1, dtype=torch.int64,
+                           device=dev), False)
+    if name == "one_dim":
+        return cols((257,), 3, "ibl"), index((5_000,), 257), True
+    raise KeyError(name)
+
+
+def check_move_rows(name: str, dev) -> int:
+    """The mover on ``dev`` against its plain version on the same tensors,
+    bit for bit at every slot (valid or not) and in ``valid``; returns the
+    launches the call made."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.move_rows import MAX_COLS, move_rows
+
+    columns, idx, zero_fill = move_rows_case(name, dev)
+    before = move_rows.launches
+    got, got_valid = move_rows(columns, idx, zero_fill=zero_fill)
+    launches = move_rows.launches - before
+    want, want_valid = ref.move_rows_ref(columns, idx, zero_fill)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    require(torch.equal(got_valid, want_valid), f"move_rows {name}: valid")
+    for n, w in want.items():
+        require(got[n].shape == w.shape and got[n].dtype == w.dtype,
+                f"move_rows {name} {n}: {tuple(got[n].shape)} "
+                f"{got[n].dtype} != {tuple(w.shape)} {w.dtype}")
+        require(torch.equal(got[n].view(torch.uint8), w.view(torch.uint8)),
+                f"move_rows {name} {n}: values differ")
+    widths: dict = {}
+    for c in columns.values():
+        widths[c.element_size()] = widths.get(c.element_size(), 0) + 1
+    if dev.type == "cuda":
+        want_launches = sum(-(-k // MAX_COLS) for k in widths.values())
+        require(launches == want_launches,
+                f"move_rows {name}: {launches} launches, {want_launches} "
+                "expected")
+    return launches
+
+
+def check_move_rows_edge_cases(dev) -> None:
+    """Every case of ``MOVE_CASES`` bit-identical to the plain version."""
+    launches = {name: check_move_rows(name, dev) for name in MOVE_CASES}
+    print(f"  move_rows: {len(MOVE_CASES)} cases bit-identical to the plain "
+          f"version; launches {launches}")
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -1092,7 +1204,8 @@ def float_gap(rows_a, rows_b) -> float:
 
 #: The kernels the main path (q1-q12) runs, and those the runtime-filter
 #: path adds.
-MAIN_KERNELS = ("partition_hist", "tiled_probe", "bitonic_sort_tile")
+MAIN_KERNELS = ("partition_hist", "tiled_probe", "bitonic_sort_tile",
+                "move_rows")
 FILTER_KERNELS = ("bloom_build", "bloom_probe", "key_range")
 
 
@@ -5459,6 +5572,7 @@ def main() -> int:
     with phase("3. kernels against their plain versions"):
         check_kernels_edge_cases(dev)
         check_filter_kernels_edge_cases(dev)
+        check_move_rows_edge_cases(dev)
 
     with phase("4. main path"):
         catalog = make_catalog(dev, args.scale, p=8)

@@ -23,9 +23,10 @@ import dataclasses
 import torch
 
 from .. import obs
+from ..kernels.move_rows import move_rows
 from ..kernels.partition_hist import partition_hist
-from .slots import (_MASK32, SHUFFLE_SEED, gather_rows, hash32,
-                    pair_capacity, slot_scatter)
+from .slots import (_MASK32, SHUFFLE_SEED, hash32, pair_capacity,
+                    slot_scatter)
 from .table import Table, concat_partitions
 
 #: Decorrelated from SHUFFLE_SEED/BUCKET_SEED: salt hashing must not undo
@@ -120,11 +121,9 @@ def _exchange_by_dest(table: Table, dest: torch.Tensor, pair_cap: int,
         # (p_src, p_dst, pc)
         scat = slot_scatter(dest, table.valid, p, pair_cap)
 
-        send_cols, send_valid = gather_rows(table.columns, scat.idx)
-        # all_to_all == axis transpose in the global view.
-        recv_cols = {n: c.transpose(0, 1).reshape(p, p * pair_cap)
-                     for n, c in send_cols.items()}
-        recv_valid = send_valid.transpose(0, 1).reshape(p, p * pair_cap)
+        # all_to_all == axis transpose in the global view: the mover writes
+        # the received (p_dst, p_src*pc) layout directly.
+        recv_cols, recv_valid = move_rows(table.columns, scat.idx)
         out = Table(recv_cols, recv_valid, partitioned_by=partitioned_by)
 
         # Measured workload: rows that actually crossed partitions, plus the

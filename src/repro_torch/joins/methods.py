@@ -53,12 +53,11 @@ def _merge_payload(a: Table, b_cols: dict, idx: torch.Tensor,
         return Table(cols, a.valid & found)
     if join_type == "left_anti":
         return Table(cols, a.valid & ~found)
-    gathered, _ = gather_rows(b_cols, idx)
+    # found == (idx >= 0): unmatched left outer rows take zeros.
+    gathered, _ = gather_rows(b_cols, idx,
+                              zero_fill=join_type == "left_outer")
     for name, col in gathered.items():
-        out_name = name if name not in cols else f"{name}_r"
-        if join_type == "left_outer":
-            col = torch.where(found, col, torch.zeros_like(col))
-        cols[out_name] = col
+        cols[name if name not in cols else f"{name}_r"] = col
     if join_type == "inner":
         valid = a.valid & found
     elif join_type == "left_outer":
@@ -320,8 +319,7 @@ def hypercube_multiway_join(tables: list, spec: HypercubeSpec,
                 _sanitized(b1, l1.build_col, B_SENTINEL),
                 _sanitized(b2, l2.build_col, B_SENTINEL))
             for b, idx in ((b1, idx1), (b2, idx2)):
-                _add_columns(cols,
-                             gather_rows(b.columns, idx.clamp(min=0))[0])
+                _add_columns(cols, gather_rows(b.columns, idx)[0])
                 valid = valid & (idx >= 0)
         else:
             for lk in spec.links:
@@ -329,8 +327,7 @@ def hypercube_multiway_join(tables: list, spec: HypercubeSpec,
                 res = hash_join(cols[lk.probe_col], valid,
                                 b.column(lk.build_col), b.valid,
                                 use_kernel=use_kernel)
-                _add_columns(cols, gather_rows(b.columns,
-                                               res.match_idx.clamp(min=0))[0])
+                _add_columns(cols, gather_rows(b.columns, res.match_idx)[0])
                 valid = valid & res.found
 
         for c1, c2 in spec.checks:

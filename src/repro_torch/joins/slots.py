@@ -16,6 +16,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..kernels.move_rows import move_rows
+
 # Distinct multiplicative mix seeds: shuffle destinations and radix buckets
 # must be decorrelated or post-shuffle partitions would collapse into a few
 # buckets (murmur3 finalizer constants).
@@ -93,18 +95,16 @@ def slot_scatter(dest: torch.Tensor, valid: torch.Tensor, nd: int, cap: int
     return SlotScatter(out[:, :nd * cap].reshape(bsz, nd, cap), overflow)
 
 
-def gather_rows(columns: dict, idx: torch.Tensor):
+def gather_rows(columns: dict, idx: torch.Tensor, zero_fill: bool = False):
     """Gather rows by (possibly -1) source indices; returns (columns, valid).
 
     A 1-D column is indexed by ``idx`` of any shape (a shared replica); a
     column ``(B, n)`` is indexed per batch row by ``idx`` of shape
-    ``(B, ...)``."""
-    safe = idx.clamp(min=0).to(torch.int64)
-    cols = {}
-    for name, c in columns.items():
-        if c.dim() == 1:
-            cols[name] = c[safe]
-        else:
-            flat = safe.reshape(c.shape[0], -1)
-            cols[name] = torch.gather(c, 1, flat).reshape(idx.shape)
-    return cols, idx >= 0
+    ``(B, ...)``. Every output has ``idx``'s shape; ``zero_fill`` gives 0
+    where ``idx`` is -1 (row 0 otherwise). One ``move_rows`` call."""
+    flat = idx.reshape(idx.shape[0], -1) if idx.dim() > 2 else idx
+    cols, valid = move_rows(columns, flat, zero_fill=zero_fill)
+    if flat is idx:
+        return cols, valid
+    return ({n: c.reshape(idx.shape) for n, c in cols.items()},
+            valid.reshape(idx.shape))

@@ -20,6 +20,7 @@ import torch
 
 from .. import obs
 from ..core.stats import StatsSource, TableStats
+from ..kernels.move_rows import move_rows
 
 
 def resolve_device(device=None) -> torch.device:
@@ -152,17 +153,19 @@ def compact_partitions(table: Table, capacity: int | None = None,
     if not table.stacked:
         raise ValueError("compact expects a stacked table")
     with obs.span(obs.COMPACT):
+        counts = table.valid.sum(dim=1)
         with obs.sync("compact"):
-            need = int(table.valid.sum(dim=1).max())
+            need = int(counts.max())
         cap = capacity or max(
             8, 1 << (max(int(need * slack), 1) - 1).bit_length())
         cap = min(cap, table.capacity)
 
         invalid = (~table.valid).to(torch.uint8)
         order = torch.argsort(invalid, dim=1, stable=True)[:, :cap]
-        cols = {n: torch.gather(c, 1, order)
-                for n, c in table.columns.items()}
-        valid = torch.gather(table.valid, 1, order)
+        cols, _ = move_rows(table.columns, order)
+        # The live rows lead each partition: the first counts[s] slots.
+        valid = (torch.arange(cap, device=counts.device)
+                 < counts[:, None])
         return Table(cols, valid, table.partitioned_by)
 
 

@@ -42,6 +42,8 @@ SIGNATURES = {
     "repro_bloom_build": (_P, _P, _LL, _I, _I, _U, _U, _I, _P, _P, _P),
     "repro_bloom_probe": (_P, _LL, _P, _I, _I, _U, _U, _I, _P, _P),
     "repro_key_range": (_P, _P, _LL, _I, _P, _P, _P),
+    "repro_move_rows": (_P, _I, _LL, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P,
+                        _P),
 }
 
 #: ptxas reports and timings of the last build in this process.

@@ -11,6 +11,7 @@ import torch
 
 from .bitonic_sort import MAX_TILE, bitonic_sort_tile
 from .bloom import bloom_build, bloom_probe
+from .move_rows import move_rows
 from .partition_hist import partition_hist
 from .tiled_probe import tiled_probe, tiled_probe3
 from .zone_map import key_range
@@ -18,7 +19,7 @@ from .zone_map import key_range
 KERNELS = {"partition_hist": partition_hist, "tiled_probe": tiled_probe,
            "bitonic_sort_tile": bitonic_sort_tile, "bloom_build": bloom_build,
            "bloom_probe": bloom_probe, "key_range": key_range,
-           "tiled_probe3": tiled_probe3}
+           "tiled_probe3": tiled_probe3, "move_rows": move_rows}
 
 
 def probe(a_keys: torch.Tensor, b_keys: torch.Tensor) -> torch.Tensor:

@@ -170,3 +170,33 @@ def _as_int32_bits(words: torch.Tensor) -> torch.Tensor:
     patterns."""
     return torch.where(words >= 1 << 31, words - (1 << 32), words).to(
         torch.int32)
+
+
+def move_rows_ref(columns: dict, idx: torch.Tensor, zero_fill: bool = False):
+    """Every column gathered through one index map (-1 = no row); returns
+    ``(columns, valid)`` with ``valid = idx >= 0``.
+
+    A 1-D column is a replica, indexed by ``idx`` of any shape; a column
+    ``(S, n)`` is indexed per row by ``idx`` of shape ``(S, ...)``. A
+    negative index reads row 0, or gives 0 where ``zero_fill``. An index
+    ``(S, D, pc)`` is an all-to-all: every output, ``valid`` too, comes
+    back in the received layout ``(D, S * pc)``, slot ``(s, d, j)`` at
+    ``[d, s * pc + j]``."""
+    safe = idx.clamp(min=0).to(torch.int64)
+    valid = idx >= 0
+    cols = {}
+    for name, c in columns.items():
+        if c.dim() == 1:
+            g = c[safe]
+        else:
+            g = torch.gather(c, 1, safe.reshape(c.shape[0], -1)).reshape(
+                idx.shape)
+        if zero_fill:
+            g = torch.where(valid, g, torch.zeros_like(g))
+        cols[name] = g
+    if idx.dim() == 3:
+        s, d, pc = idx.shape
+        cols = {n: g.transpose(0, 1).reshape(d, s * pc)
+                for n, g in cols.items()}
+        valid = valid.transpose(0, 1).reshape(d, s * pc)
+    return cols, valid

@@ -49,6 +49,8 @@ FILTERS_BUILD = "rj.filters.build"  # build_filter_payload
 FILTERS_PROBE = "rj.filters.probe"  # probe_filter_mask
 # exchange (joins/exchange.py)
 EXCHANGE = "rj.exchange"        # broadcast, _exchange_by_dest (args: kind)
+MOVE = "rj.move"                # kernels.move_rows: the exchange's all-to-all,
+                                # compaction and the joins' payload merge
 # local joins and aggregation
 LOCAL_JOIN = "rj.local_join"    # a method's local phase (args: method)
 AGGREGATE = "rj.aggregate"      # group_aggregate

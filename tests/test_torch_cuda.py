@@ -283,7 +283,8 @@ def test_main_path_on_the_card_equals_the_cpu(cuda):
             assert rows_close(rows_as_set(got.table.to_numpy()),
                               rows_as_set(want.table.to_numpy())), name
     counts = ops.launch_counts()
-    for kernel in ("partition_hist", "tiled_probe", "bitonic_sort_tile"):
+    for kernel in ("partition_hist", "tiled_probe", "bitonic_sort_tile",
+                   "move_rows"):
         assert counts[kernel] > 0, kernel
 
 
@@ -492,7 +493,8 @@ def test_text_suite_on_the_card_equals_the_cpu(cuda):
             assert rows_close(rows_as_set(got.table.to_numpy()),
                               rows_as_set(want.table.to_numpy())), name
     counts = ops.launch_counts()
-    for kernel in ("partition_hist", "tiled_probe", "bitonic_sort_tile"):
+    for kernel in ("partition_hist", "tiled_probe", "bitonic_sort_tile",
+                   "move_rows"):
         assert counts[kernel] > 0, kernel
 
 
@@ -681,6 +683,20 @@ def _chip_smoke_by_name():
         sys.path.insert(0, root)
     import chip_smoke
     return chip_smoke
+
+
+@pytest.mark.parametrize("case", ["exchange_sf1", "compact_sf1",
+                                  "merge_replica_outer", "ragged_edge",
+                                  "many_columns", "all_invalid", "one_dim"])
+def test_move_rows_equals_plain(cuda, case):
+    """The row mover against its plain version on the card, bit for bit
+    at every slot, valid or not (``chip_smoke.MOVE_CASES``: store_sales'
+    exchange and compaction at SF1, p = 8, 23 columns; a ragged tile edge;
+    more columns than one launch carries), one launch per element width
+    and chunk of columns."""
+    cs = _chip_smoke_by_name()
+    assert case in cs.MOVE_CASES
+    assert cs.check_move_rows(case, cuda) > 0
 
 
 @pytest.mark.parametrize("world,backend", [(4, "gloo"), (1, "nccl")])

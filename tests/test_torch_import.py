@@ -137,6 +137,7 @@ def test_kernel_wrappers_never_fall_back_off_the_cpu():
     CPU tensor takes the plain version."""
     from repro_torch.kernels.bitonic_sort import bitonic_sort_tile
     from repro_torch.kernels.bloom import bloom_build, bloom_probe
+    from repro_torch.kernels.move_rows import move_rows
     from repro_torch.kernels.partition_hist import partition_hist
     from repro_torch.kernels.tiled_probe import tiled_probe, tiled_probe3
     from repro_torch.kernels.zone_map import key_range
@@ -155,6 +156,8 @@ def test_kernel_wrappers_never_fall_back_off_the_cpu():
         key_range(meta)
     with pytest.raises(ValueError, match="expected cuda"):
         tiled_probe3(meta, meta, meta, meta)
+    with pytest.raises(ValueError, match="expected cuda"):
+        move_rows({"a": meta}, meta)
 
 
 def test_kernel_sources_export_every_declared_entry_point():
@@ -162,7 +165,7 @@ def test_kernel_sources_export_every_declared_entry_point():
     names = {s.name for s in build.sources()}
     assert names == {"partition_hist.cu", "tiled_probe.cu",
                      "bitonic_sort.cu", "bloom.cu", "zone_map.cu",
-                     "tiled_probe3.cu"}
+                     "tiled_probe3.cu", "move_rows.cu"}
     text = "".join(s.read_text() for s in build.sources())
     for entry in (*build.SIGNATURES, "repro_error_string"):
         assert f" {entry}(" in text

@@ -97,9 +97,20 @@ def test_spans_are_named_in_the_table(rounds):
     for name in (obs.BATCH, obs.CSE, obs.QUERY, obs.OP_SCAN, obs.OP_REGION,
                  obs.OP_AGGREGATE, obs.SELECT, obs.FILTERS_PLAN,
                  obs.FILTERS_BUILD, obs.FILTERS_PROBE, obs.EXCHANGE,
-                 obs.LOCAL_JOIN, obs.AGGREGATE, obs.COMPACT,
+                 obs.LOCAL_JOIN, obs.AGGREGATE, obs.COMPACT, obs.MOVE,
                  obs.SYNCS["count"], obs.SYNCS["exchange"]):
         assert name in seen, name
+
+
+def test_row_moves_nest_in_exchange_compaction_and_local_join(rounds):
+    _, _, events, _, _ = rounds
+    moves = [e for e in events if e[0] == obs.MOVE]
+    holders = {name: [e for e in events if e[0] == name]
+               for name in (obs.EXCHANGE, obs.COMPACT, obs.LOCAL_JOIN)}
+    for ev in moves:
+        assert any(_inside(ev, h) for h in holders.values()), ev
+    for name, held in holders.items():
+        assert any(_inside(m, held) for m in moves), name
 
 
 def test_operators_nest_in_their_query(rounds):
