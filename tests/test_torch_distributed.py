@@ -269,10 +269,12 @@ def save_jax_twins_on_8_devices(path):
 @pytest.mark.slow
 def test_world8_array_equal_jax_twins_on_8_devices(ranks, tmp_path):
     path = tmp_path / "jax_twins.npz"
+    # The script imports ``tests.helpers``, so the repo root is on its path.
+    root = Path(__file__).resolve().parents[1]
     env = dict(os.environ,
                XLA_FLAGS="--xla_force_host_platform_device_count=8",
                JAX_PLATFORMS="cpu",
-               PYTHONPATH=str(Path(__file__).resolve().parents[1] / "src"))
+               PYTHONPATH=os.pathsep.join([str(root / "src"), str(root)]))
     proc = subprocess.run([sys.executable, __file__, str(path)],
                           capture_output=True, text=True, timeout=600,
                           env=env)

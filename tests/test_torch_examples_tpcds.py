@@ -2,7 +2,8 @@
 at its smallest setting: the same printed workloads, wins and PSTS; only
 the wall times may differ, and they are masked. The case of
 ``test_torch_examples.py``'s parametrized test, in a file of its own so that
-it runs beside the ``quickstart`` case under ``--dist loadfile``."""
+under ``--dist loadfile`` it runs on a worker of its own, among the first
+files queued (``LONG_FILES`` in the repo-root ``conftest.py``)."""
 
 import sys
 
